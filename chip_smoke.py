@@ -8,7 +8,9 @@ Phases (any failure raises, so the exit code is not 0):
   1. device  — require CUDA; print the card's name and power limit.
   2. build   — compile every kernel of the serving, training and ring
                paths from csrc/ with nvcc (one process per source, all started
-               together) into build/.
+               together) into build/; print each kernel's registers and
+               spill bytes from the ptxas report, and fail if a forward
+               instantiation spills.
   3. kernels — hold the paged decode kernel against its plain PyTorch
                twin on the card at the shapes the serving path gives it,
                within a stated tolerance, and time kernel, plain twin and
@@ -17,9 +19,14 @@ Phases (any failure raises, so the exit code is not 0):
   3b. flash  — the same for the three flash attention kernels (forward,
                dK/dV, dQ) at the training shape (B 8, S 1024, H 12, D 64,
                bf16, causal), a GQA shape (H 32 over 8 kv heads, S 512)
-               and a ragged one (S 1000, not causal); the backward must
-               give bitwise-equal grads on two runs; the yardstick is
-               SDPA's forward and its backward (fwd+bwd minus fwd).
+               and a ragged one (S 1000, not causal), and the forward
+               alone where its 128-row q tiles and 64-key K/V tiles have
+               edges: S 64 and 96 (less than one q tile), S 200 (a
+               ragged diagonal), D 32 and D 128 (S 512), all causal; the
+               backward must give bitwise-equal grads on two runs; the
+               yardstick is SDPA's forward and its backward (fwd+bwd
+               minus fwd). Prints the forward's TFLOP/s and its time as a
+               multiple of its bound at the training shape.
   3c. ring   — the same for the three ring-attention hop kernels (the
                flash kernels with a carry: forward, dQ, dK/dV) at phase
                6's hop shape (B 8, S_local 256, H 12, D 64, bf16, fp32
@@ -62,6 +69,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,6 +107,32 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_kernels(report: str) -> dict:
+    """{kernel: {"registers": n, "spill_bytes": stores + loads}} from an
+    ``nvcc -Xptxas -v`` report, each name demangled as far as its
+    integer and bool template arguments (``flash_fwd_kernel<64, false,
+    128>``)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?\d+((?:[a-z]+_)*"
+                      r"kernel)(?:I((?:L[ib]\d+E)+)E)?", line)
+        if m:
+            args = [("true" if v == "1" else "false") if t == "b" else v
+                    for t, v in re.findall(r"L([ib])(\d+)E", m.group(2) or "")]
+            name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+            out[name] = {"registers": None, "spill_bytes": 0}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean device time of ``fn()`` over ``reps`` runs (CUDA events,
     after two warm-up runs)."""
@@ -130,16 +164,24 @@ def kernel_device_ms(fn, reps: int, kernel: str) -> float:
 
     for _ in range(2):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    # the tracer may drop some or all of a window's device events: the
+    # mean is over the launches it saw, from the first of up to three
+    # windows that shows at least half of them
+    for _ in range(3):
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    check(len(us) == reps, f"profiler saw {len(us)} launches of {kernel}, "
-                           f"not {reps}")
-    return sum(us) / reps / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        if 2 * len(us) >= reps:
+            if len(us) < reps:
+                log(f"  profiler saw {len(us)} of {reps} launches of "
+                    f"{kernel}")
+            return sum(us) / len(us) / 1e3
+    raise SystemExit(f"FAILED: profiler saw {len(us)} of {reps} launches "
+                     f"of {kernel} in three windows")
 
 
 # ---------------------------------------------------------------------------
@@ -642,17 +684,56 @@ def run_flash_case(case, *, timed: bool) -> dict:
     return out
 
 
+def run_flash_fwd_case(case) -> dict:
+    """The forward kernel alone against its plain twin: O and LSE."""
+    import torch
+
+    from pytorchdistributed_tpu_torch.ops import flash_attention as fa
+
+    causal, name = case["causal"], case["name"]
+    q, k, v, _ = case["sets"][0]
+    o, lse = fa._launch_fwd(q, k, v, causal, q.shape[-1] ** -0.5)
+    torch.cuda.synchronize()
+    po, plse = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
+    errs = {}
+    for key, got, want in (("O", o, po), ("LSE", lse, plse)):
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite {key}")
+        errs[key], ok = max_err(got, want)
+        check(ok, f"{name}: {key} kernel vs plain max |err| {errs[key]:.3e} "
+                  f"beyond {BF16_TOL} * (1 + |plain|)")
+    log(f"  {name}: " + json.dumps({"max_abs_err": errs}))
+    return dict(name=name, max_abs_err=errs)
+
+
 def phase_flash() -> dict:
     log("phase 3b: flash kernels vs plain twins (tolerance |err| <= "
         f"{BF16_TOL} * (1 + |plain|), bf16; backward run twice, bitwise)")
-    train = run_flash_case(flash_case("train_8x1024x12x64_causal", b=8,
-                                      s=1024, h=12, hk=12, causal=True,
-                                      copies=2), timed=True)
+    train_case = flash_case("train_8x1024x12x64_causal", b=8, s=1024, h=12,
+                            hk=12, causal=True, copies=2)
+    train = run_flash_case(train_case, timed=True)
     variants = [run_flash_case(c, timed=False) for c in (
         flash_case("gqa_32q_8kv_s512_causal", b=4, s=512, h=32, hk=8,
                    causal=True, seed=1),
         flash_case("ragged_s1000_full", b=2, s=1000, h=12, hk=12,
                    causal=False, seed=2))]
+    # the forward where its tiling has edges: 128-row q tiles, 64-key K/V
+    # tiles, 32 rows a warp at D <= 64 and 16 at D 128
+    fwd_variants = [run_flash_fwd_case(flash_case(
+        name, b=b, s=s, h=12, hk=12, d=d, causal=True, seed=seed))
+        for name, b, s, d, seed in (("fwd_s64_causal", 4, 64, 64, 3),
+                                    ("fwd_s96_causal", 4, 96, 64, 4),
+                                    ("fwd_s200_causal", 4, 200, 64, 5),
+                                    ("fwd_d32_s512_causal", 2, 512, 32, 6),
+                                    ("fwd_d128_s512_causal", 2, 512, 128, 7))]
+    fwd = train["kernels"]["flash_fwd"]
+    b, s, h, _, d = train_case["shape"]
+    fwd_flops = 2 * 2 * d * b * h * s * (s + 1) // 2   # Q·Kᵀ and P·V
+    fwd["tflops"] = fwd_flops / (fwd["ms"] * 1e-3) / 1e12
+    fwd["times_bound"] = fwd["ms"] / fwd["bound_ms"]
+    log(f"  flash_fwd at {train_case['name']}: {fwd['ms']:.4f} ms, "
+        f"{fwd['tflops']:.1f} TFLOP/s, {fwd['times_bound']:.2f}x its "
+        f"{fwd['bound_ms']:.4f} ms bound ({fwd['bound_by']}); SDPA's "
+        f"forward {fwd['library_ms']:.4f} ms")
     errs = {}
     for kname, keys in (("flash_fwd", ("O", "LSE")),
                         ("flash_bwd_dkv", ("dK", "dV")),
@@ -663,8 +744,11 @@ def phase_flash() -> dict:
             # rows carry the one SDPA backward and the one plain backward
             row["plain_and_library_compute"] = "dQ, dK and dV together"
         row["max_abs_err"] = max(train["max_abs_err"][k] for k in keys)
+        checked = [train, *variants]
+        if kname == "flash_fwd":
+            checked += fwd_variants
         row["max_abs_err_all_variants"] = max(
-            r["max_abs_err"][k] for r in [train, *variants] for k in keys)
+            r["max_abs_err"][k] for r in checked for k in keys)
         errs[kname] = row
     return dict(kernels=errs, port_fwd_bwd_ms=train["port_fwd_bwd_ms"],
                 library_fwd_bwd_ms=train["library_fwd_bwd_ms"])
@@ -822,7 +906,7 @@ def run_ring_case(case, *, timed: bool) -> dict:
             # ms: the kernel's device time; ms_events: CUDA events around
             # the launch loop, host launch gaps included
             out["kernels"][kname] = dict(
-                ms=kernel_device_ms(fn, 50, f"{body}<{d}, true>"),
+                ms=kernel_device_ms(fn, 50, f"{body}<{d}, true"),
                 ms_events=time_ms(fn, 50), plain_ms=plain)
         for kname, row in out["kernels"].items():
             row["bound_ms"], row["bound_by"] = bounds[kname]
@@ -1113,10 +1197,17 @@ def main() -> int:
     reports = _build.build(*KERNEL_SOURCES)
     log(f"phase 2: built {list(KERNEL_SOURCES)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    registers = {}
     for name, rep in reports.items():
         with open(os.path.join(report_dir(), f"ptxas_{name}.txt"),
                   "w") as f:
             f.write(rep)
+        registers.update(ptxas_kernels(rep))
+    if registers:   # only a build made here has a report
+        log("  ptxas: " + json.dumps(registers))
+        spills = {k: v for k, v in registers.items()
+                  if k.startswith("flash_fwd_kernel") and v["spill_bytes"]}
+        check(not spills, f"forward instantiations spill: {spills}")
 
     kern = phase_kernels()
     flash = phase_flash()

@@ -13,8 +13,9 @@
 //     the same recompute, accumulating dQ = dS·K over the k tiles.
 // and, with kCarry = true (the Pallas bodies traced with carry=True), the
 // three hop kernels of pytorchdistributed_tpu/ops/ring_attention.py:
-//   * _pallas_fwd_update -> flash_fwd_kernel<D, true>: fold one visiting
-//     K/V block into the fp32 (m, l, acc) carry, left unnormalized;
+//   * _pallas_fwd_update -> flash_fwd_kernel<D, true, kBlockM>: fold one
+//     visiting K/V block into the fp32 (m, l, acc) carry, left
+//     unnormalized;
 //   * _pallas_bwd_update -> flash_bwd_dq_kernel<D, true> and
 //     flash_bwd_dkv_kernel<D, true>: add one block's share to the fp32 dQ
 //     and to the co-travelling dK/dV accumulators.
@@ -44,25 +45,58 @@
 // memory become the limit: bound 0.015 ms by bytes), dK/dV 25.8 GFLOP
 // over 76 MB and dQ 19.3 GFLOP over 64 MB (above it: bounds 0.026 and
 // 0.020 ms by operations). So nothing S x S may reach memory, and the
-// products must run on the tensor cores. The design:
-//   * one CTA of 4 warps per (b·h, 64-row q tile) in the forward and dQ
-//     kernels, per (b·h_kv, 64-row k tile) in the dK/dV kernel; each warp
-//     owns 16 rows and loops over the other side's 64-row tiles inside
-//     the CTA (the Pallas sequential grid dimension), stopping at the
-//     diagonal under causal (the Pallas block skip);
-//   * tiles are staged in shared memory with 16-byte loads (rows padded
-//     by 8 elements, so fragment loads are free of bank conflicts); the
-//     fragments follow the PTX m16n8k16 layouts, and a logits fragment
-//     turns into the next product's A fragment in registers, so S, P and
-//     dS never touch shared or device memory;
-//   * the dK/dV CTA loops over the group's q heads itself, so the GQA
-//     reduction needs no atomics and the backward is deterministic.
-// Left to a later change: wgmma and TMA with a producer warp, double-
-// buffered tiles (loads and products do not overlap yet), and skipping
-// the fully masked 16-row slices of the diagonal tile.
+// products must run on the tensor cores. In practice no kernel here is
+// near either bound: each spends its time issuing instructions per tile
+// pair — shared-memory fragment loads, mask arithmetic, exponentials and
+// the mma.sync products themselves — and waiting on its own tile loads.
+//
+// The forward (flash_fwd_kernel) is built to cut those per-pair costs:
+//   * one CTA per (b·h, kBlockM-row q tile) and 4 warps at D <= 64: 128
+//     rows for the flash step, each warp owning 32 (two 16-row m-tiles
+//     that share every K and V fragment it loads, which halves the
+//     shared-memory reads per product and gives each warp two
+//     independent chains of products); 64 rows, 16 a warp, for the
+//     ring's hop, whose S_local 256 would leave 192 CTAs of 128 rows for
+//     132 SMs. At D 128 a warp owns 16 rows (its registers hold no more);
+//   * the warp's rows of Q are fetched once into A fragments held in
+//     registers for the whole K loop;
+//   * K/V tiles of 64 keys move through a two-stage ring in shared
+//     memory with 16-byte cp.async copies (rows past S zero-filled by the
+//     copy itself): tile j + 1 is in flight while tile j is computed, and
+//     one barrier per tile both publishes tile j and frees tile j - 1's
+//     stage;
+//   * fragments come from shared memory by ldmatrix (K's by x4, V's by
+//     x4.trans, since P·V wants V key-major): one instruction for four
+//     8x8 matrices, in place of 32-bit and 16-bit scalar loads; rows are
+//     padded by 8 elements (a 144-byte pitch at D 64), so the eight row
+//     addresses of each matrix fall in distinct banks;
+//   * only tiles that hold keys past S or, under causal, keys past the
+//     warp's first row test a mask: the others run with no compare; a
+//     warp whose rows all lie above a tile's first key skips the tile,
+//     and on a diagonal tile it skips the 16-key chunks above its last
+//     row;
+//   * the softmax runs in base 2: scale·log2(e) folded into one fma per
+//     logit before ex2, the running max kept in natural units, so LSE and
+//     the ring's carried m are unchanged; p becomes P·V's A fragment 16
+//     keys at a time, and O takes one reciprocal of l a row.
+// What bounds it now: the mma.sync products and the exponentials (one
+// ex2 per logit, 16 a clock an SM against 128 fp32 fmas), issued from
+// 8 warps an SM in two 255-register CTAs. A warp of 16 rows
+// (more CTAs, fewer registers) and K/V tiles of 128 keys (fewer
+// barriers and rescales) were both slower on the H100 — see PERF.md.
+// The backward kernels keep the first design: one CTA of 4 warps per
+// 64-row tile, fragments by scalar shared loads, synchronous tile loads.
+// In every kernel the fragments follow the PTX m16n8k16 layouts, and a
+// logits fragment turns into the next product's A fragment in registers,
+// so S, P and dS never touch shared or device memory; the dK/dV CTA loops
+// over the group's q heads itself, so the GQA reduction needs no atomics
+// and the backward is deterministic.
+// Left to a later change: wgmma with TMA loads and a producer warp
+// (warp specialisation) for the forward, and the backward's own redesign.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -287,115 +321,353 @@ __device__ __forceinline__ void store_rows_f32(float* out,
   }
 }
 
-template <int D, bool kCarry>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
+// ---------------------------------------------------------------------------
+// the forward: Q in registers, K/V through a two-stage cp.async ring,
+// fragments by ldmatrix
+
+// q rows per CTA of the forward: the flash step's, and the ring hop's
+// (the benchmark of the two tilings builds this file with others)
+#ifndef PTD_FLASH_FWD_BLOCK_M
+#define PTD_FLASH_FWD_BLOCK_M 128
+#endif
+#ifndef PTD_RING_FWD_BLOCK_M
+#define PTD_RING_FWD_BLOCK_M 64
+#endif
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, bypassing registers and L1;
+// with valid false the copy reads nothing and writes 16 zero bytes
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four 8x8 bf16 matrices from the shared-memory address `a`, lanes
+// 8i..8i+7 giving the row addresses of matrix i; r[i] is the lane's
+// fragment of matrix i (row lane / 4, columns 2·(lane % 4) and the next)
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// the same, each matrix transposed: the lane holds rows 2·(lane % 4) and
+// the next of column lane / 4
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// rows [row0, row0 + kRows) of one head's [S, D] slice into shared memory
+// at `sm` (row pitch D + 8) by cp.async from kThreadsT threads; rows past
+// S are zero-filled by the copy, never read
+template <int D, int kRows, int kThreadsT>
+__device__ __forceinline__ void load_tile_async(uint32_t sm, const bf16* base,
+                                                long long row_stride,
+                                                int row0, int S) {
+  constexpr int LD = D + 8, CH = D / 8;
+  static_assert(kRows * CH % kThreadsT == 0, "whole copies per thread");
+#pragma unroll
+  for (int it = 0; it < kRows * CH / kThreadsT; ++it) {
+    const int i = threadIdx.x + it * kThreadsT;
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = row0 + r < S;
+    cp_async16(sm + (r * LD + c) * 2,
+               base + (ok ? static_cast<long long>(row0 + r) * row_stride + c
+                          : 0),
+               ok);
+  }
+}
+
+// How the forward divides a q tile of kBlockM rows among warps: 32 rows
+// a warp (two 16-row m-tiles, each K and V fragment feeding both) where
+// the registers allow it — a 128-row tile at D <= 64 — else 16. K/V
+// tiles hold kTile keys.
+template <int D, int kBlockM>
+struct FwdShape {
+  static constexpr int kMt = (D <= 64 && kBlockM == 128) ? 2 : 1;
+  static constexpr int kWarps = kBlockM / (16 * kMt);
+  static constexpr int kThreads = 32 * kWarps;
+  // registers a thread may take, and so the CTAs an SM keeps: 255 for
+  // two m-tiles or D 128 (two 4-warp CTAs an SM, or one of 8 warps); one
+  // m-tile at D 64 holds 168 (three 4-warp CTAs), at D 32 128 (four)
+  static constexpr int kRegs = (kMt == 2 || D == 128) ? 255 : D == 64 ? 168 : 128;
+  static constexpr int kMinCtas = 65536 / (kRegs * kThreads);
+  // the Q tile and two stages of K and V
+  static constexpr int kSmem = (kBlockM + 4 * kTile) * (D + 8) * 2;
+};
+
+// One K/V tile of kTile keys at n0 folded into a warp's (m, l, acc) for its
+// MT m-tiles of 16 rows, m-tile i holding rows row + 16·i and
+// row + 16·i + 8: S = Q·Kᵀ from the register-held Q fragments, the
+// online softmax in base 2, acc += bf16(P)·V. `k_lane` and `v_lane` are
+// the shared addresses this lane gives ldmatrix for the tile's first
+// fragments; the rest are constant offsets from them. kMask: the tile
+// holds keys past S or, under causal, keys past one of the warp's rows,
+// and those keys get logit -inf; the running m starts at the finite
+// -1e30 and never falls below it, so a masked key adds exactly 0 to l and
+// acc, as the Pallas body's -1e30 does. Without kMask nothing is tested.
+template <int D, int MT, bool kMask>
+__device__ __forceinline__ void fwd_tile(const uint32_t qf[MT][D / 16][4],
+                                         uint32_t k_lane, uint32_t v_lane,
+                                         float acc[MT][D / 8][4],
+                                         float m[MT][2], float l[MT][2],
+                                         int row, int n0, int S, int causal,
+                                         float scale, int lane) {
   constexpr int LD = D + 8;
+  const int t = lane & 3;
+  // under causal, keys past the warp's last row are masked for all its
+  // rows: the 16-key chunks that hold only such keys skip their products
+  // and exponentials (their logits stay -inf, their p 0)
+  const int chunks = kMask && causal
+      ? min(kTile / 16, (row - (lane >> 2) + 16 * MT - 1 - n0) / 16 + 1)
+      : kTile / 16;
+  float s[MT][kTile / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt)
+      s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)
+#pragma unroll
+    for (int np = 0; np < kTile / 16; ++np) {
+      if (np >= chunks) continue;
+      uint32_t bk[4];
+      ldsm_x4(bk, k_lane + (np * 16 * LD + kc * 16) * 2);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma16816(s[mt][2 * np], qf[mt][kc], bk[0], bk[1]);
+        mma16816(s[mt][2 * np + 1], qf[mt][kc], bk[2], bk[3]);
+      }
+    }
+
+  float mb[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    // each row's max over the lane's 16 logits as four chains of four,
+    // so few fmaxf wait on one another
+    float mx[2][4];
+#pragma unroll
+    for (int nt = 0; nt < kTile / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (kMask) {
+          const int col = n0 + nt * 8 + 2 * t + (i & 1);
+          if (col >= S || (causal && row + mt * 16 + (i >> 1) * 8 < col))
+            s[mt][nt][i] = -INFINITY;
+        }
+        float& c = mx[i >> 1][(nt & 1) * 2 + (i & 1)];
+        c = nt < 2 ? s[mt][nt][i] : fmaxf(c, s[mt][nt][i]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float row_max = fmaxf(fmaxf(mx[r][0], mx[r][1]),
+                                  fmaxf(mx[r][2], mx[r][3]));
+      const float mn = fmaxf(m[mt][r], quad_max(row_max) * scale);  // scale > 0
+      const float corr = ex2((m[mt][r] - mn) * kLog2e);
+      mb[mt][r] = mn * kLog2e;
+      m[mt][r] = mn;
+      l[mt][r] *= corr;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        acc[mt][nt][2 * r] *= corr;
+        acc[mt][nt][2 * r + 1] *= corr;
+      }
+    }
+  }
+  const float scale2 = scale * kLog2e;
+  // p for 16 keys at a time, straight into the A fragment of P·V, so the
+  // fp32 logits die as they are used
+#pragma unroll
+  for (int kc = 0; kc < kTile / 16; ++kc) {
+    if (kc >= chunks) continue;
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nt = 2 * kc; nt < 2 * kc + 2; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[mt][nt][i] = ex2(fmaf(s[mt][nt][i], scale2, -mb[mt][i >> 1]));
+      // the row sums take the 16 keys' four p's per row as a tree
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        l[mt][r] += (s[mt][2 * kc][2 * r] + s[mt][2 * kc][2 * r + 1]) +
+                    (s[mt][2 * kc + 1][2 * r] + s[mt][2 * kc + 1][2 * r + 1]);
+      c_to_a(a[mt], s[mt][2 * kc], s[mt][2 * kc + 1]);
+    }
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t bv[4];
+      ldsm_x4_t(bv, v_lane + (kc * 16 * LD + dp * 16) * 2);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma16816(acc[mt][2 * dp], a[mt], bv[0], bv[1]);
+        mma16816(acc[mt][2 * dp + 1], a[mt], bv[2], bv[3]);
+      }
+    }
+  }
+}
+
+template <int D, bool kCarry, int kBlockM>
+__global__ void __launch_bounds__(FwdShape<D, kBlockM>::kThreads,
+                                  FwdShape<D, kBlockM>::kMinCtas)
+    flash_fwd_kernel(Params p) {
+  using Shape = FwdShape<D, kBlockM>;
+  constexpr int LD = D + 8, MT = Shape::kMt, kThreadsT = Shape::kThreads;
+  constexpr int kTileBytes = kTile * LD * 2;
+  constexpr int kStageBytes = 2 * kTileBytes;  // K then V of one stage
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sk = sq + kTile * LD;
-  bf16* sv = sk + kTile * LD;
+  const uint32_t sq = smem_addr(smem);
+  const uint32_t skv = sq + kBlockM * LD * 2;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int t = lane & 3;
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // longest rows first
-  const int row = q0 + warp * 16 + (lane >> 2);          // and row + 8
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockM;  // longest rows first
+  const int wrow0 = q0 + warp * 16 * MT;  // the warp's rows: 16·MT from here
+  const int row = wrow0 + (lane >> 2);    // m-tile i: row + 16·i, and + 8
   const bf16* kb = p.k + b * p.k_sb + hk * p.k_sh;
   const bf16* vb = p.v + b * p.v_sb + hk * p.v_sh;
-  load_tile<D>(sq, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.S);
+  load_tile_async<D, kBlockM, kThreadsT>(sq, p.q + b * p.q_sb + h * p.q_sh,
+                                         p.q_ss, q0, p.S);
+  load_tile_async<D, kTile, kThreadsT>(skv, kb, p.k_ss, 0, p.S);
+  load_tile_async<D, kTile, kThreadsT>(skv + kTileBytes, vb, p.v_ss, 0, p.S);
+  cp_async_commit();
 
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-  if constexpr (kCarry) {
-    // m is one value per row, the same in all four lanes of a quad; l is
-    // a per-lane partial sum over each lane's columns that quad_sum joins
-    // at the end, so the carried-in l enters in lane t == 0 only
+  float m[MT][2], l[MT][2], acc[MT][D / 8][4];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int rr = row + r * 8;
-      if (rr < p.S) {
-        m[r] = p.m[static_cast<long long>(bh) * p.S + rr];
-        if (t == 0) l[r] = p.l[static_cast<long long>(bh) * p.S + rr];
+  for (int mt = 0; mt < MT; ++mt) {
+    const int rmt = row + mt * 16;
+    if constexpr (kCarry) {
+      // m is one value per row, the same in all four lanes of a quad; l is
+      // a per-lane partial sum over each lane's columns that quad_sum
+      // joins at the end, so the carried-in l enters in lane t == 0 only
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rr = rmt + r * 8;
+        m[mt][r] = kNegInf;
+        l[mt][r] = 0.f;
+        if (rr < p.S) {
+          m[mt][r] = p.m[static_cast<long long>(bh) * p.S + rr];
+          if (t == 0) l[mt][r] = p.l[static_cast<long long>(bh) * p.S + rr];
+        }
       }
-    }
-    load_rows_f32<D>(acc, p.acc, b, row, p.S, p.H, h, lane);
-  } else {
+      load_rows_f32<D>(acc[mt], p.acc, b, rmt, p.S, p.H, h, lane);
+    } else {
+      m[mt][0] = m[mt][1] = kNegInf;
+      l[mt][0] = l[mt][1] = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+      for (int nt = 0; nt < D / 8; ++nt)
+        acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+    }
   }
 
-  const int kend = p.causal ? min(p.S, q0 + kTile) : p.S;
-  for (int n0 = 0; n0 < kend; n0 += kTile) {
-    __syncthreads();  // the previous K/V tile is consumed
-    load_tile<D>(sk, kb, p.k_ss, n0, p.S);
-    load_tile<D>(sv, vb, p.v_ss, n0, p.S);
-    __syncthreads();
-    float s[8][4];
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qf[MT][D / 16][4];  // the warp's rows of Q, for the whole loop
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    dot_nt<D, 8>(s, sq + warp * 16 * LD, sk, lane);
-    float mx[2] = {kNegInf, kNegInf};
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = n0 + nt * 8 + 2 * t + (i & 1);
-        s[nt][i] = col < p.S && (!p.causal || row + (i >> 1) * 8 >= col)
-                       ? s[nt][i] * p.scale
-                       : kNegInf;
-        mx[i >> 1] = fmaxf(mx[i >> 1], s[nt][i]);
-      }
-    float corr[2], mn[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mn[r] = fmaxf(m[r], quad_max(mx[r]));
-      corr[r] = expf(m[r] - mn[r]);
-      m[r] = mn[r];
-      l[r] *= corr[r];
+    for (int kc = 0; kc < D / 16; ++kc)
+      ldsm_x4(qf[mt][kc],
+              sq + (((warp * MT + mt) * 16 + (lane & 15)) * LD +
+                    (lane >> 4) * 8 + kc * 16) * 2);
+  // the lane's ldmatrix rows in a stage: K [key][d] in matrices (keys 0-7
+  // | 8-15) x (d 0-7 | 8-15), which give b0, b1 of a pair of 8-key
+  // n-tiles; V the same read transposed, (keys 0-7 | 8-15) x (d 0-7 |
+  // 8-15), b0, b1 of a pair of 8-wide d-tiles
+  const uint32_t k_lane =
+      skv + (((lane >> 4) * 8 + (lane & 7)) * LD + ((lane >> 3) & 1) * 8) * 2;
+  const uint32_t v_lane = skv + kTileBytes +
+      ((((lane >> 3) & 1) * 8 + (lane & 7)) * LD + (lane >> 4) * 8) * 2;
+
+  const int kend = p.causal ? min(p.S, q0 + kBlockM) : p.S;
+  const int ntiles = (kend + kTile - 1) / kTile;
+  for (int j = 0; j < ntiles; ++j) {
+    if (j > 0) {
+      // tile j has landed, and every warp is done with tile j - 1, whose
+      // stage the next copies overwrite
+      cp_async_wait_all();
+      __syncthreads();
     }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = n0 + nt * 8 + 2 * t + (i & 1);
-        const bool ok = col < p.S && (!p.causal || row + (i >> 1) * 8 >= col);
-        s[nt][i] = ok ? expf(s[nt][i] - mn[i >> 1]) : 0.f;
-        l[i >> 1] += s[nt][i];
-      }
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      acc[nt][0] *= corr[0];
-      acc[nt][1] *= corr[0];
-      acc[nt][2] *= corr[1];
-      acc[nt][3] *= corr[1];
+    if (j + 1 < ntiles) {
+      const uint32_t next = skv + ((j + 1) & 1) * kStageBytes;
+      load_tile_async<D, kTile, kThreadsT>(next, kb, p.k_ss, (j + 1) * kTile,
+                                           p.S);
+      load_tile_async<D, kTile, kThreadsT>(next + kTileBytes, vb, p.v_ss,
+                                           (j + 1) * kTile, p.S);
     }
-    dot_pv<D>(acc, s, sv, lane);
+    cp_async_commit();
+    const int n0 = j * kTile;
+    // every key of the tile above every row of the warp
+    if (p.causal && n0 > wrow0 + 16 * MT - 1) continue;
+    const uint32_t stage = (j & 1) * kStageBytes;
+    if (n0 + kTile > p.S || (p.causal && n0 + kTile - 1 > wrow0))
+      fwd_tile<D, MT, true>(qf, k_lane + stage, v_lane + stage, acc, m, l,
+                            row, n0, p.S, p.causal, p.scale, lane);
+    else
+      fwd_tile<D, MT, false>(qf, k_lane + stage, v_lane + stage, acc, m, l,
+                             row, n0, p.S, p.causal, p.scale, lane);
   }
 
-  if constexpr (kCarry) {
-    // the carry leaves unnormalized: the ring divides once after its
-    // last hop
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float lr = quad_sum(l[r]);
-      const int rr = row + r * 8;
-      if (t == 0 && rr < p.S) {
-        p.m[static_cast<long long>(bh) * p.S + rr] = m[r];
-        p.l[static_cast<long long>(bh) * p.S + rr] = lr;
+  for (int mt = 0; mt < MT; ++mt) {
+    const int rmt = row + mt * 16;
+    if constexpr (kCarry) {
+      // the carry leaves unnormalized: the ring divides once after its
+      // last hop
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float lr = quad_sum(l[mt][r]);
+        const int rr = rmt + r * 8;
+        if (t == 0 && rr < p.S) {
+          p.m[static_cast<long long>(bh) * p.S + rr] = m[mt][r];
+          p.l[static_cast<long long>(bh) * p.S + rr] = lr;
+        }
       }
-    }
-    store_rows_f32<D>(p.acc, acc, b, row, p.S, p.H, h, lane);
-  } else {
-    float lsum[2];
+      store_rows_f32<D>(p.acc, acc[mt], b, rmt, p.S, p.H, h, lane);
+    } else {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      lsum[r] = fmaxf(quad_sum(l[r]), 1e-30f);
-      const int rr = row + r * 8;
-      if (t == 0 && rr < p.S)
-        p.lse[static_cast<long long>(bh) * p.S + rr] = m[r] + logf(lsum[r]);
+      for (int r = 0; r < 2; ++r) {
+        const float lsum = fmaxf(quad_sum(l[mt][r]), 1e-30f);
+        const int rr = rmt + r * 8;
+        if (t == 0 && rr < p.S)
+          p.lse[static_cast<long long>(bh) * p.S + rr] = m[mt][r] + logf(lsum);
+        // O = acc / l as one reciprocal a row and a product an element
+        const float inv = 1.f / lsum;
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          acc[mt][nt][2 * r] *= inv;
+          acc[mt][nt][2 * r + 1] *= inv;
+        }
+      }
+      store_rows<D>(p.o, acc[mt], 1.f, 1.f, b, rmt, p.S, p.H, h, lane);
     }
-    store_rows<D>(p.o, acc, lsum[0], lsum[1], b, row, p.S, p.H, h, lane);
   }
 }
 
@@ -547,11 +819,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, int smem, const Params& p,
-                   cudaStream_t st) {
+                   cudaStream_t st, int threads = kThreads) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, st>>>(p);
+  kernel<<<grid, threads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -563,10 +835,12 @@ template <int D, bool kCarry>
 cudaError_t launch_d(Which which, const Params& p, cudaStream_t st) {
   const int tiles = (p.S + kTile - 1) / kTile;
   const int bwd_smem = 4 * tile_bytes(D) + 2 * kTile * 4;
+  constexpr int bm = kCarry ? PTD_RING_FWD_BLOCK_M : PTD_FLASH_FWD_BLOCK_M;
   switch (which) {
     case kFwd:
-      return launch(flash_fwd_kernel<D, kCarry>, dim3(p.B * p.H, tiles),
-                    3 * tile_bytes(D), p, st);
+      return launch(flash_fwd_kernel<D, kCarry, bm>,
+                    dim3(p.B * p.H, (p.S + bm - 1) / bm),
+                    FwdShape<D, bm>::kSmem, p, st, FwdShape<D, bm>::kThreads);
     case kDkv:
       return launch(flash_bwd_dkv_kernel<D, kCarry>,
                     dim3(p.B * p.Hkv, tiles), bwd_smem, p, st);

@@ -18,7 +18,8 @@ Two implementations of each half:
     first use, loaded with ctypes) — what a CUDA tensor gets. They take
     bfloat16 only: a float32 CUDA input is refused with a ``TypeError``
     (there is no non-tensor-core path). ``head_dim`` must be 32, 64 or
-    128. The kernels pick their own 64-row tiles; ``block_q`` /
+    128. The kernels pick their own tiles — the forward 128-row q tiles
+    over 64-key K/V tiles, the backward 64 by 64 — so ``block_q`` /
     ``block_k`` (a VMEM choice on the TPU) do not reach them;
   * ``flash_attention_fwd_plain`` / ``flash_attention_bwd_plain``, the
     same blocked online-softmax recurrence in plain PyTorch, looping over

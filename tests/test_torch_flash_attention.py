@@ -6,7 +6,8 @@ backward the CUDA kernels compute). It is held here against the JAX
 package's Pallas ``flash_attention`` in interpret mode on the same numpy
 inputs, both at ``block_q = block_k = 16``: the output and all three
 gradients, causal and not, grouped-query (8 q heads over 2 kv heads), a
-ragged ``S = 37`` and an autograd ``dO`` of stride 0. fp32 runs at the
+ragged ``S = 37`` and an autograd ``dO`` of stride 0; the forward and
+its LSE also at unequal blocks (32, 16) and (16, 32). fp32 runs at the
 reference suite's own tolerance (atol 2e-5, tests/test_attention.py).
 
 The CUDA kernels are held against the plain twins on the card by the
@@ -121,6 +122,33 @@ def test_lse_matches_jax_flash_fwd():
                                np.asarray(jlse)[..., 0], atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("block_q,block_k", [(32, 16), (16, 32)])
+def test_unequal_blocks_match_jax_flash(block_q, block_k):
+    """q and k blocks of different sizes, as the forward kernel tiles (q
+    tiles twice its K/V tiles): under causal a q block then meets two
+    partly masked k blocks, or a k block two q blocks. The output and the
+    LSE against the Pallas ``flash_attention`` / ``_flash_fwd`` on the
+    same blocks (GQA 8 q over 2 kv heads, ragged S = 37)."""
+    jax, jnp, jax_flash, jax_flash_fwd = _jax()
+    q, k, v, _ = _inputs(s=37, h=8, hk=2, d=16, seed=19)
+    b, s, h, d = q.shape
+    blk = dict(block_q=block_q, block_k=block_k)
+
+    def fold(a):
+        return jnp.asarray(a).transpose(0, 2, 1, 3).reshape(-1, s, d)
+
+    jout = jax_flash(*map(jnp.asarray, (q, k, v)), causal=True, **blk)
+    _, jlse = jax_flash_fwd(fold(q), fold(k), fold(v), causal=True,
+                            scale=d ** -0.5, interpret=True, **blk)
+    ts = [torch.from_numpy(a) for a in (q, k, v)]
+    out = flash_attention(*ts, causal=True, **blk)
+    _, lse = flash_attention_fwd_plain(*ts, causal=True, **blk)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(lse.numpy().reshape(b * h, s),
+                               np.asarray(jlse)[..., 0], atol=ATOL, rtol=0)
+
+
 def test_stride_zero_dout_matches_jax():
     """``out.sum().backward()`` hands the backward an expanded dO whose
     strides are all 0."""
@@ -202,13 +230,20 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
 def _cuda_case(dev, variant):
     """(q, k, v, dO, causal) bf16 on the card; "fused" takes q/k/v as the
-    strided views of one [B, S, 3, H, D] projection output."""
+    strided views of one [B, S, 3, H, D] projection output. The forward
+    takes 128-row q tiles and 64-key K/V tiles: "s64" and "s96" are less
+    than one q tile, "s200" ends in a ragged diagonal."""
     b, s, h, hk, d, causal = {
         "causal": (2, 256, 4, 4, 64, True),
         "full": (2, 256, 4, 4, 64, False),
         "gqa": (1, 192, 8, 2, 128, True),
         "ragged": (2, 100, 4, 4, 32, False),
         "fused": (2, 130, 4, 4, 64, True),
+        "s64": (2, 64, 4, 4, 64, True),
+        "s96": (2, 96, 4, 4, 64, True),
+        "s200": (2, 200, 4, 4, 64, True),
+        "d32": (2, 512, 4, 4, 32, True),
+        "d128": (2, 512, 4, 4, 128, True),
     }[variant]
     g = torch.Generator().manual_seed(0)
     if variant == "fused":
@@ -244,6 +279,22 @@ def test_kernels_match_plain_on_cuda(cuda_device, variant):
         assert got.shape == ref.shape and got.is_contiguous(), name
         torch.testing.assert_close(got.float(), ref.float(), **BF16_TOL,
                                    msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["s64", "s96", "s200", "d32", "d128"])
+def test_forward_matches_plain_on_cuda(cuda_device, variant):
+    """The forward kernel alone (O, LSE) against its plain twin where its
+    tiling has edges: shorter than one q tile, a ragged diagonal, and
+    head_dim 32 and 128."""
+    q, k, v, _, causal = _cuda_case(cuda_device, variant)
+    n0 = fa.launches["flash_fwd"]
+    o, lse = fa._launch_fwd(q, k, v, causal, q.shape[-1] ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_fwd"] == n0 + 1
+    po, plse = flash_attention_fwd_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(o.float(), po.float(), **BF16_TOL)
+    torch.testing.assert_close(lse, plse, atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.cuda

@@ -10,7 +10,8 @@ tests/test_attention.py):
     (plain versions) and ``_xla_*_update`` against the JAX
     ``_pallas_*_update`` in Pallas interpret mode, from non-trivial
     carries, diagonal and fully visible, at block 16 and at block 12
-    against S_local 16 (the padded tail);
+    against S_local 16 (the padded tail); the diagonal forward hop also at
+    unequal blocks (32, 16) and (16, 32) over S_local 37;
   * the whole op: ``ring_attention_sharded`` under a port mesh ``seq=4``
     against the JAX one under ``create_mesh(data=2, seq=4)`` — output and
     the grads of ``sum(out · dO)``, causal and not, both impls;
@@ -131,6 +132,32 @@ def test_fwd_hop_matches_jax(impl, blk, causal):
     t = {n: torch.from_numpy(x[n].copy()) for n in x}
     acc, m, l = update(t["q"], t["k"], t["v"], t["acc"], t["m"], t["l"],
                        causal=causal, spec=spec)
+    np.testing.assert_allclose(acc.numpy(), _unfold(np.asarray(jacc), B, H),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm).reshape(B, H, -1),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl).reshape(B, H, -1),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("block_q,block_k", [(32, 16), (16, 32)])
+def test_fwd_hop_unequal_blocks_match_jax(block_q, block_k):
+    """The diagonal forward hop at unequal q and k blocks, as its kernel
+    may tile, over a ragged S_local 37: the plain hop against the JAX
+    ``_pallas_fwd_update`` on the same blocks, from the same carry."""
+    _, jnp, jring, _ = _jax()
+    x = _hop_inputs(s=37, seed=4)
+    kw = dict(axis_name=Axis.SEQ, causal=True, scale=D ** -0.5,
+              block_q=block_q, block_k=block_k)
+    jacc, jm, jl = jring._pallas_fwd_update(
+        *(jnp.asarray(_fold(x[n])) for n in ("q", "k", "v", "acc")),
+        jnp.asarray(_rows(x["m"])), jnp.asarray(_rows(x["l"])),
+        causal=True, spec=jring._RingSpec(impl="pallas", interpret=True,
+                                          **kw))
+    t = {n: torch.from_numpy(x[n].copy()) for n in x}
+    acc, m, l = ring._pallas_fwd_update(
+        t["q"], t["k"], t["v"], t["acc"], t["m"], t["l"], causal=True,
+        spec=ring._RingSpec(impl="pallas", **kw))
     np.testing.assert_allclose(acc.numpy(), _unfold(np.asarray(jacc), B, H),
                                atol=ATOL, rtol=0)
     np.testing.assert_allclose(m.numpy(), np.asarray(jm).reshape(B, H, -1),
