@@ -10,15 +10,17 @@
 //     dS = P * (dO·Vᵀ - Δ) * scale against every q tile of every q head
 //     of the GQA group, accumulating dV = Pᵀ·dO and dK = dSᵀ·Q;
 //   * _bwd_dq_kernel (launched by _flash_bwd) -> flash_bwd_dq_kernel:
-//     the same recompute, accumulating dQ = dS·K over the k tiles.
+//     the same recompute, accumulating dQ = dS·K over the k tiles; it
+//     also forms Δ = rowsum(dO ∘ O) for its rows (the Pallas code leaves
+//     Δ to XLA) and writes it for the dK/dV kernel, launched after it.
 // and, with kCarry = true (the Pallas bodies traced with carry=True), the
 // three hop kernels of pytorchdistributed_tpu/ops/ring_attention.py:
 //   * _pallas_fwd_update -> flash_fwd_kernel<D, true, kBlockM>: fold one
 //     visiting K/V block into the fp32 (m, l, acc) carry, left
 //     unnormalized;
 //   * _pallas_bwd_update -> flash_bwd_dq_kernel<D, true> and
-//     flash_bwd_dkv_kernel<D, true>: add one block's share to the fp32 dQ
-//     and to the co-travelling dK/dV accumulators.
+//     flash_bwd_dkv_kernel<D, true>: add one block's share to the
+//     fp32 dQ and to the co-travelling dK/dV accumulators (Δ is read).
 // A hop kernel starts from the carry instead of -1e30 / 0 / 0 and stores
 // it back in fp32, in place (each CTA reads and writes only its own rows
 // or keys). At the ring's hop shape (B·H 96, S 256, D 64) the carry's
@@ -46,9 +48,10 @@
 // over 76 MB and dQ 19.3 GFLOP over 64 MB (above it: bounds 0.026 and
 // 0.020 ms by operations). So nothing S x S may reach memory, and the
 // products must run on the tensor cores. In practice no kernel here is
-// near either bound: each spends its time issuing instructions per tile
-// pair — shared-memory fragment loads, mask arithmetic, exponentials and
-// the mma.sync products themselves — and waiting on its own tile loads.
+// near either bound (4.3-4.5x on the H100, see PERF.md): each spends its
+// time issuing instructions per tile pair — shared-memory fragment
+// loads, mask arithmetic, exponentials and the mma.sync products
+// themselves — and waiting on its own tile loads.
 //
 // The forward (flash_fwd_kernel) is built to cut those per-pair costs:
 //   * one CTA per (b·h, kBlockM-row q tile) and 4 warps at D <= 64: 128
@@ -84,15 +87,50 @@
 // 8 warps an SM in two 255-register CTAs. A warp of 16 rows
 // (more CTAs, fewer registers) and K/V tiles of 128 keys (fewer
 // barriers and rescales) were both slower on the H100 — see PERF.md.
-// The backward kernels keep the first design: one CTA of 4 warps per
-// 64-row tile, fragments by scalar shared loads, synchronous tile loads.
+//
+// The backward pair (flash_bwd_dq_kernel, flash_bwd_dkv_kernel) does two
+// products more per tile pair than the forward (dO·Vᵀ, and dS·K or Pᵀ·dO
+// with dSᵀ·Q) and no running max, and is built from the same pieces:
+//   * one CTA per (b·h, 64-row q tile) for dQ and per (b·h_kv, 64-key
+//     tile) for dK/dV, 16 rows or keys a warp; the side the CTA does not
+//     own streams past it in 64-row tiles;
+//   * the operands that never change in the loop are fetched once into A
+//     fragments held in registers: Q and dO in dQ; K and V in dK/dV,
+//     across every q tile of every q head of the GQA group (at D 128 the
+//     dK/dV accumulators leave no room, and K/V fragments are re-read by
+//     ldmatrix at each use);
+//   * the streamed tiles (K/V in dQ; Q/dO with their LSE and Δ rows in
+//     dK/dV) move through a two-stage cp.async ring, one barrier a tile;
+//     the dK/dV ring runs on across head boundaries of the group, so the
+//     next head's first tile is in flight during this head's last;
+//   * every B fragment comes by ldmatrix: x4 where the tile is stored
+//     [n][k] (K in Q·Kᵀ, V in dO·Vᵀ, Q in K·Qᵀ, dO in V·dOᵀ), x4.trans
+//     where it is stored [k][n] (K in dS·K, dO in Pᵀ·dO, Q in dSᵀ·Q);
+//   * the recompute runs 16 keys (dQ) or 16 q rows (dK/dV) at a time,
+//     so each chunk's S and dP die in its own two products: P =
+//     2^(s·scale·log2(e) - LSE·log2(e)) as one fma and one ex2 an
+//     element, LSE staying in natural units at the interface (the ring
+//     and the plain twins read it); dS = P·(dP - Δ)·scale;
+//   * masks only on diagonal and ragged tiles, as in the forward: a warp
+//     that sees nothing of a tile skips it, and on a diagonal tile it
+//     skips the 16-wide chunks wholly masked for it;
+//   * the flash step's dQ kernel forms Δ from O and its dO fragments,
+//     and so launches first; the ring's hops read the Δ their shard
+//     computed once.
+// What bounds the pair now: shared memory. A warp of 16 rows or keys
+// shares no streamed fragment with another, so every chunk issues one
+// ldmatrix.x4 (512 bytes; the SM reads 128 a clock) for every two
+// mma.sync. Two m-tiles a warp would halve that but need two sets of
+// accumulators: for dQ that was 3 % faster on the flash step and 9 %
+// slower on the hop, for dK/dV the registers do not hold them; 128-wide
+// CTA sides were slower for both kernels — see PERF.md.
 // In every kernel the fragments follow the PTX m16n8k16 layouts, and a
 // logits fragment turns into the next product's A fragment in registers,
 // so S, P and dS never touch shared or device memory; the dK/dV CTA loops
 // over the group's q heads itself, so the GQA reduction needs no atomics
 // and the backward is deterministic.
 // Left to a later change: wgmma with TMA loads and a producer warp
-// (warp specialisation) for the forward, and the backward's own redesign.
+// (warp specialisation).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,20 +141,19 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;          // rows of a q tile and of a k tile
+constexpr int kTile = 64;          // rows of a streamed K/V or Q/dO tile
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' finite -inf
 
 struct Params {
   const bf16 *q, *k, *v, *dout;
+  const bf16* o_in;            // the flash dQ kernel's O, for Δ
   const float *lse_in, *delta;
   bf16 *o, *dq, *dk, *dv;
-  float* lse;
+  float *lse, *delta_out;
   float *m, *l, *acc;          // forward hop carry, updated in place
   float *dqf, *dkf, *dvf;      // backward hop carries, updated in place
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
-  long long do_sb, do_ss, do_sh;
+  long long do_sb, do_ss, do_sh, o_sb, o_ss, o_sh;
   int B, S, H, Hkv;
   float scale;
   int causal;
@@ -131,10 +168,6 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
@@ -142,34 +175,6 @@ __device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
 
 __device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
   return pack2(__float2bfloat16(lo), __float2bfloat16(hi));
-}
-
-// A fragment (16x16, row-major) of the tile at x: rows g and g+8,
-// columns 2t.. and 2t+8.. (g = lane / 4, t = lane % 4).
-__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* x, int ld,
-                                       int lane) {
-  const bf16* p = x + (lane >> 2) * ld + 2 * (lane & 3);
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragment (16 deep x 8 wide) from a tile stored [n][k] (k contiguous):
-// the Kᵀ of Q·Kᵀ.
-__device__ __forceinline__ void frag_b_nk(uint32_t& b0, uint32_t& b1,
-                                          const bf16* x, int ld, int lane) {
-  const bf16* p = x + (lane >> 2) * ld + 2 * (lane & 3);
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// B fragment from a tile stored [k][n] (n contiguous): the V of P·V.
-__device__ __forceinline__ void frag_b_kn(uint32_t& b0, uint32_t& b1,
-                                          const bf16* x, int ld, int lane) {
-  const bf16* p = x + 2 * (lane & 3) * ld + (lane >> 2);
-  b0 = pack2(p[0], p[ld]);
-  b1 = pack2(p[8 * ld], p[9 * ld]);
 }
 
 // The logits fragments s[2c], s[2c+1] (two 16x8 accumulators) rounded to
@@ -182,65 +187,10 @@ __device__ __forceinline__ void c_to_a(uint32_t a[4], const float lo[4],
   a[3] = pack_f2(hi[2], hi[3]);
 }
 
-// rows [row0, row0 + 64) of one head's [S, D] slice into shared memory
-// (row pitch D + 8); rows past S are zeros
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* sm, const bf16* base,
-                                          long long row_stride, int row0,
-                                          int S) {
-  constexpr int LD = D + 8, CH = D / 8;
-  for (int i = threadIdx.x; i < kTile * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(
-          base + static_cast<long long>(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(sm + r * LD + c) = val;
-  }
-}
-
-__device__ __forceinline__ void load_rows(float* sm, const float* base,
-                                          int row0, int S) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads)
-    sm[i] = row0 + i < S ? base[row0 + i] : 0.f;
-}
-
-// acc[16 x 8·NT] += A[16 x D] · Bᵀ where B is the [8·NT][D] tile at b
-// (both stored k-contiguous): Q·Kᵀ, dO·Vᵀ, K·Qᵀ, V·dOᵀ.
-template <int D, int NT>
-__device__ __forceinline__ void dot_nt(float acc[NT][4], const bf16* a_tile,
-                                       const bf16* b_tile, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    uint32_t a[4];
-    frag_a(a, a_tile + kc * 16, LD, lane);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      uint32_t b0, b1;
-      frag_b_nk(b0, b1, b_tile + nt * 8 * LD + kc * 16, LD, lane);
-      mma16816(acc[nt], a, b0, b1);
-    }
-  }
-}
-
-// acc[16 x D] += bf16(P[16 x 64]) · X where P is held as 8 accumulator
-// fragments and X is the [64][D] tile at x: P·V, Pᵀ·dO, dSᵀ·Q, dS·K.
-template <int D>
-__device__ __forceinline__ void dot_pv(float acc[D / 8][4], const float p[8][4],
-                                       const bf16* x, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int kc = 0; kc < kTile / 16; ++kc) {
-    uint32_t a[4];
-    c_to_a(a, p[2 * kc], p[2 * kc + 1]);
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      uint32_t b0, b1;
-      frag_b_kn(b0, b1, x + kc * 16 * LD + nt * 8, LD, lane);
-      mma16816(acc[nt], a, b0, b1);
-    }
-  }
+// the two bf16 of a packed pair (low half first) as floats, exactly
+__device__ __forceinline__ float2 bf16x2_float2(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -251,10 +201,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ bool attends(int S, int causal, int row, int col) {
-  return row < S && col < S && (!causal || row >= col);
 }
 
 // rows `row` and `row + 8` of 16x8 fragments, each divided by its row's
@@ -671,103 +617,406 @@ __global__ void __launch_bounds__(FwdShape<D, kBlockM>::kThreads,
   }
 }
 
-// P = exp(S·scale - LSE) and dS = P * (dP - Δ) * scale on one pair of
-// 16x64 fragments, in place (s becomes P, dp becomes dS). kStatsOnRows:
-// the fragment rows are q rows (dQ kernel); otherwise they are keys and
-// the columns q rows (the transposed Sᵀ of the dK/dV kernel).
-template <bool kStatsOnRows>
-__device__ __forceinline__ void recompute(int S, int causal, float scale,
-                                          float s[8][4], float dp[8][4],
-                                          const float* slse,
-                                          const float* sdelta, int row0,
-                                          int col0, int srow, int lane) {
+// ---------------------------------------------------------------------------
+// the backward: the warp's invariant operands in registers, the streamed
+// side through a two-stage cp.async ring, fragments by ldmatrix
+
+// one fp32 from global to shared memory (4-byte copies: a row statistic's
+// rows need not start 16-byte aligned); with valid false it writes a zero
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(dst), "l"(src), "r"(valid ? 4 : 0));
+}
+
+// The lane's ldmatrix row address, in bytes from a tile's start, for the
+// first fragments of a [rows][D + 8] bf16 tile:
+//   lane_a:  the A operand, rows 0-15 x k 0-15 (x4: a0..a3);
+//   lane_nk: a B operand stored [n][k] (x4: b0, b1 of n rows 0-7, then
+//            of n rows 8-15, over k 0-15);
+//   lane_kn: a B operand stored [k][n] (x4.trans: b0, b1 of n columns
+//            0-7, then of 8-15, over k rows 0-15).
+// The rest are constant offsets: 16 rows are 16·(D + 8)·2 bytes, 16
+// columns 32.
+template <int D>
+__device__ __forceinline__ uint32_t lane_a(int lane) {
+  return ((lane & 15) * (D + 8) + (lane >> 4) * 8) * 2;
+}
+template <int D>
+__device__ __forceinline__ uint32_t lane_nk(int lane) {
+  return (((lane >> 4) * 8 + (lane & 7)) * (D + 8) + ((lane >> 3) & 1) * 8) *
+         2;
+}
+template <int D>
+__device__ __forceinline__ uint32_t lane_kn(int lane) {
+  return ((((lane >> 3) & 1) * 8 + (lane & 7)) * (D + 8) + (lane >> 4) * 8) *
+         2;
+}
+
+// A backward CTA owns kTile rows (dQ) or keys (dK/dV), 16 a warp.
+// Registers a thread may take, and so the CTAs an SM keeps: 168 at
+// D <= 64 (three 4-warp CTAs), 255 at D 128 (two). A CTA side of 128
+// (8 warps, each streamed tile feeding twice the warps) was slower for
+// both kernels on the H100 — see PERF.md.
+template <int D>
+struct BwdShape {
+  static constexpr int kThreads = 32 * (kTile / 16);
+  static constexpr int kRegs = D == 128 ? 255 : 168;
+  static constexpr int kMinCtas = 65536 / (kRegs * kThreads);
+  static constexpr int kTileBytes = kTile * (D + 8) * 2;
+  // dQ: its Q and dO tiles, then two stages of K and V
+  static constexpr int kDqSmem = 6 * kTileBytes;
+  // dK/dV: its K and V tiles, then two stages of Q, dO, LSE and Δ
+  static constexpr int kDkvStage = 2 * kTileBytes + 2 * kTile * 4;
+  static constexpr int kDkvSmem = 2 * kTileBytes + 2 * kDkvStage;
+};
+
+// One K/V tile of kTile keys at n0 folded into a warp's dQ for its 16
+// rows (row and row + 8 in this lane), 16 keys at a time: S = Q·Kᵀ and
+// dP = dO·Vᵀ from the register-held Q and dO fragments, P = 2^(S·scale·
+// log2(e) - LSE·log2(e)) and dS = P·(dP - Δ)·scale, then dQ += bf16(dS)·K.
+// `nk` and `kn` are this lane's ldmatrix addresses of the stage's K tile
+// ([n][k] for Q·Kᵀ, [k][n] for dS·K; V follows K by one tile); lse2 holds
+// the rows' LSE·log2(e), dlt their Δ. kMask: the tile holds keys past S
+// or, under causal, past one of the warp's rows; those get P = 0 and
+// dS = 0 exactly, and 16-key chunks that hold only such keys are skipped.
+// Without kMask nothing is tested.
+template <int D, bool kMask>
+__device__ __forceinline__ void dq_tile(const uint32_t qf[D / 16][4],
+                                        const uint32_t dof[D / 16][4],
+                                        uint32_t nk, uint32_t kn,
+                                        float dq[D / 8][4],
+                                        const float lse2[2],
+                                        const float dlt[2], int row, int n0,
+                                        int S, int causal, float scale,
+                                        int lane) {
+  constexpr int LD = D + 8, kTileBytes = kTile * LD * 2;
   const int t = lane & 3;
+  int chunks = kTile / 16;
+  if (kMask) {
+    chunks = min(chunks, (S - 1 - n0) / 16 + 1);
+    if (causal)  // keys past the warp's last row
+      chunks = min(chunks, (row - (lane >> 2) + 15 - n0) / 16 + 1);
+  }
+  const float scale2 = scale * kLog2e;
+  // not unrolled: unrolled by 2 or 4, ptxas hoists the next chunk's
+  // fragment loads and spills at 168 registers, and was no faster
+#pragma unroll 1
+  for (int c = 0; c < chunks; ++c) {
+    float s[2][4], dp[2][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + (i >> 1) * 8;
-      const int c = col0 + nt * 8 + 2 * t + (i & 1);
-      const int si = kStatsOnRows ? srow + (i >> 1) * 8 : nt * 8 + 2 * t + (i & 1);
-      const bool ok = kStatsOnRows ? attends(S, causal, r, c)
-                                   : attends(S, causal, c, r);
-      const float pr = ok ? expf(s[nt][i] * scale - slse[si]) : 0.f;
-      dp[nt][i] = ok ? pr * (dp[nt][i] - sdelta[si]) * scale : 0.f;
-      s[nt][i] = pr;
+      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t bk[4], bv[4];
+      ldsm_x4(bk, nk + (c * 16 * LD + kc * 16) * 2);
+      ldsm_x4(bv, nk + kTileBytes + (c * 16 * LD + kc * 16) * 2);
+      mma16816(s[0], qf[kc], bk[0], bk[1]);
+      mma16816(s[1], qf[kc], bk[2], bk[3]);
+      mma16816(dp[0], dof[kc], bv[0], bv[1]);
+      mma16816(dp[1], dof[kc], bv[2], bv[3]);
     }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = s[nt][i];
+        if constexpr (kMask) {
+          const int col = n0 + c * 16 + nt * 8 + 2 * t + (i & 1);
+          if (col >= S || (causal && row + (i >> 1) * 8 < col)) x = -INFINITY;
+        }
+        const float pr = ex2(fmaf(x, scale2, -lse2[i >> 1]));
+        dp[nt][i] = pr * (dp[nt][i] - dlt[i >> 1]) * scale;
+      }
+    uint32_t a[4];
+    c_to_a(a, dp[0], dp[1]);
+#pragma unroll
+    for (int dd = 0; dd < D / 16; ++dd) {
+      uint32_t bk[4];
+      ldsm_x4_t(bk, kn + (c * 16 * LD + dd * 16) * 2);
+      mma16816(dq[2 * dd], a, bk[0], bk[1]);
+      mma16816(dq[2 * dd + 1], a, bk[2], bk[3]);
+    }
+  }
 }
 
 template <int D, bool kCarry>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
-  constexpr int LD = D + 8;
+__global__ void __launch_bounds__(BwdShape<D>::kThreads,
+                                  BwdShape<D>::kMinCtas)
+    flash_bwd_dq_kernel(Params p) {
+  using Shape = BwdShape<D>;
+  constexpr int LD = D + 8, kThreadsT = Shape::kThreads;
+  constexpr int kTileBytes = Shape::kTileBytes;
+  constexpr int kStageBytes = 2 * kTileBytes;  // K then V of one stage
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sdo = sq + kTile * LD;
-  bf16* sk = sdo + kTile * LD;
-  bf16* sv = sk + kTile * LD;
-  float* slse = reinterpret_cast<float*>(sv + kTile * LD);
-  float* sdelta = slse + kTile;
+  const uint32_t sq = smem_addr(smem);
+  const uint32_t sdo = sq + kTileBytes;
+  const uint32_t skv = sdo + kTileBytes;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
-  const int srow = warp * 16 + (lane >> 2);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // longest rows first
+  const int wrow0 = q0 + warp * 16;      // the warp's 16 rows
+  const int row = wrow0 + (lane >> 2);   // and row + 8
   const bf16* kb = p.k + b * p.k_sb + hk * p.k_sh;
   const bf16* vb = p.v + b * p.v_sb + hk * p.v_sh;
-  load_tile<D>(sq, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.S);
-  load_tile<D>(sdo, p.dout + b * p.do_sb + h * p.do_sh, p.do_ss, q0, p.S);
-  load_rows(slse, p.lse_in + static_cast<long long>(bh) * p.S, q0, p.S);
-  load_rows(sdelta, p.delta + static_cast<long long>(bh) * p.S, q0, p.S);
+  load_tile_async<D, kTile, kThreadsT>(sq, p.q + b * p.q_sb + h * p.q_sh,
+                                       p.q_ss, q0, p.S);
+  load_tile_async<D, kTile, kThreadsT>(
+      sdo, p.dout + b * p.do_sb + h * p.do_sh, p.do_ss, q0, p.S);
+  load_tile_async<D, kTile, kThreadsT>(skv, kb, p.k_ss, 0, p.S);
+  load_tile_async<D, kTile, kThreadsT>(skv + kTileBytes, vb, p.v_ss, 0, p.S);
+  cp_async_commit();
 
+  // the rows' statistics, for the whole loop (zeros past S). Δ =
+  // rowsum(dO ∘ O): the flash step's kernel forms Δ from O and writes it
+  // for the dK/dV kernel that follows; the ring's hop reads the Δ its
+  // shard computed once
+  constexpr bool kFuseDelta = !kCarry;
+  float lse2[2], dlt[2];
+  uint32_t of[D / 16][4];  // O in the A-fragment layout of dO
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + r * 8;
+    const long long i = static_cast<long long>(bh) * p.S + rr;
+    lse2[r] = rr < p.S ? p.lse_in[i] * kLog2e : 0.f;
+    dlt[r] = rr < p.S && !kFuseDelta ? p.delta[i] : 0.f;
+  }
+  if constexpr (kFuseDelta) {
+    const bf16* ob = p.o_in + b * p.o_sb + h * p.o_sh + 2 * (lane & 3);
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int rr = row + (j & 1) * 8;
+        of[kc][j] = rr < p.S ? *reinterpret_cast<const uint32_t*>(
+                                   ob + rr * p.o_ss + kc * 16 + (j >> 1) * 8)
+                             : 0u;
+      }
+  }
   float dq[D / 8][4];
   if constexpr (kCarry) {
-    load_rows_f32<D>(dq, p.dqf, b, q0 + srow, p.S, p.H, h, lane);
+    load_rows_f32<D>(dq, p.dqf, b, row, p.S, p.H, h, lane);
   } else {
 #pragma unroll
     for (int nt = 0; nt < D / 8; ++nt)
       dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.f;
   }
 
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qf[D / 16][4], dof[D / 16][4];  // the warp's rows, for the loop
+  const uint32_t a_off = lane_a<D>(lane) + warp * 16 * LD * 2;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    ldsm_x4(qf[kc], sq + a_off + kc * 32);
+    ldsm_x4(dof[kc], sdo + a_off + kc * 32);
+  }
+  if constexpr (kFuseDelta) {
+    // the lane's 2·D/8 products a row (a0, a2 on row, a1, a3 on row + 8),
+    // then the quad's
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 x = bf16x2_float2(dof[kc][j]);
+        const float2 y = bf16x2_float2(of[kc][j]);
+        dlt[j & 1] = fmaf(x.y, y.y, fmaf(x.x, y.x, dlt[j & 1]));
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dlt[r] = quad_sum(dlt[r]);
+      const int rr = row + r * 8;
+      if ((lane & 3) == 0 && rr < p.S)
+        p.delta_out[static_cast<long long>(bh) * p.S + rr] = dlt[r];
+    }
+  }
+  const uint32_t nk = skv + lane_nk<D>(lane), kn = skv + lane_kn<D>(lane);
+
   const int kend = p.causal ? min(p.S, q0 + kTile) : p.S;
-  for (int n0 = 0; n0 < kend; n0 += kTile) {
-    __syncthreads();
-    load_tile<D>(sk, kb, p.k_ss, n0, p.S);
-    load_tile<D>(sv, vb, p.v_ss, n0, p.S);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
-    dot_nt<D, 8>(s, sq + warp * 16 * LD, sk, lane);    // Q·Kᵀ
-    dot_nt<D, 8>(dp, sdo + warp * 16 * LD, sv, lane);  // dO·Vᵀ
-    recompute<true>(p.S, p.causal, p.scale, s, dp, slse, sdelta, q0 + srow,
-                    n0, srow, lane);
-    dot_pv<D>(dq, dp, sk, lane);                       // dS·K
+  const int ntiles = (kend + kTile - 1) / kTile;
+  for (int j = 0; j < ntiles; ++j) {
+    if (j > 0) {
+      // tile j has landed, and every warp is done with tile j - 1, whose
+      // stage the next copies overwrite
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    if (j + 1 < ntiles) {
+      const uint32_t next = skv + ((j + 1) & 1) * kStageBytes;
+      load_tile_async<D, kTile, kThreadsT>(next, kb, p.k_ss, (j + 1) * kTile,
+                                           p.S);
+      load_tile_async<D, kTile, kThreadsT>(next + kTileBytes, vb, p.v_ss,
+                                           (j + 1) * kTile, p.S);
+    }
+    cp_async_commit();
+    const int n0 = j * kTile;
+    // every key of the tile past every row of the warp
+    if (p.causal && n0 > wrow0 + 15) continue;
+    const uint32_t stage = (j & 1) * kStageBytes;
+    if (n0 + kTile > p.S || (p.causal && n0 + kTile - 1 > wrow0))
+      dq_tile<D, true>(qf, dof, nk + stage, kn + stage, dq, lse2, dlt, row,
+                       n0, p.S, p.causal, p.scale, lane);
+    else
+      dq_tile<D, false>(qf, dof, nk + stage, kn + stage, dq, lse2, dlt, row,
+                        n0, p.S, p.causal, p.scale, lane);
   }
   if constexpr (kCarry)
-    store_rows_f32<D>(p.dqf, dq, b, q0 + srow, p.S, p.H, h, lane);
+    store_rows_f32<D>(p.dqf, dq, b, row, p.S, p.H, h, lane);
   else
-    store_rows<D>(p.dq, dq, 1.f, 1.f, b, q0 + srow, p.S, p.H, h, lane);
+    store_rows<D>(p.dq, dq, 1.f, 1.f, b, row, p.S, p.H, h, lane);
+}
+
+// q tile `it` of a dK/dV CTA's walk — q head hk·group + it / nq of the
+// group, rows qstart + (it % nq)·kTile — into the stage at `st`: its Q
+// and dO rows, then its LSE and Δ rows (zeros past S)
+template <int D, int kThreadsT>
+__device__ __forceinline__ void load_q_tile(uint32_t st, const Params& p,
+                                            int b, int hk, int qstart,
+                                            int nq, int it) {
+  constexpr int kTileBytes = kTile * (D + 8) * 2;
+  const int h = hk * (p.H / p.Hkv) + it / nq;
+  const int q0 = qstart + (it % nq) * kTile;
+  const long long bh = static_cast<long long>(b) * p.H + h;
+  load_tile_async<D, kTile, kThreadsT>(st, p.q + b * p.q_sb + h * p.q_sh,
+                                       p.q_ss, q0, p.S);
+  load_tile_async<D, kTile, kThreadsT>(
+      st + kTileBytes, p.dout + b * p.do_sb + h * p.do_sh, p.do_ss, q0, p.S);
+  for (int i = threadIdx.x; i < 2 * kTile; i += kThreadsT) {
+    const int r = i % kTile;
+    const float* src = (i < kTile ? p.lse_in : p.delta) + bh * p.S;
+    const bool ok = q0 + r < p.S;
+    cp_async4(st + 2 * kTileBytes + i * 4, src + (ok ? q0 + r : 0), ok);
+  }
+}
+
+// One q tile of kTile rows at q0 folded into a warp's dK and dV for its
+// 16 keys (key and key + 8 in this lane), 16 q rows at a time: Sᵀ = K·Qᵀ
+// and dPᵀ = V·dOᵀ from the warp's K and V fragments (held in registers
+// when kHold, else read from the CTA's tiles at ka / va), Pᵀ and dSᵀ as in
+// dq_tile with the statistics indexed by column, then dV += bf16(Pᵀ)·dO
+// and dK += bf16(dSᵀ)·Q. `nk` and `kn` are this lane's ldmatrix addresses
+// of the stage's Q tile (dO follows by one tile), `stats` its LSE row (Δ
+// follows by kTile). kMask: the tile holds rows past S or, under causal,
+// rows above one of the warp's keys; those get P = 0 and dS = 0 exactly,
+// and 16-row chunks that hold only such rows are skipped.
+template <int D, bool kHold, bool kMask>
+__device__ __forceinline__ void dkv_tile(const uint32_t kf[][4],
+                                         const uint32_t vf[][4], uint32_t ka,
+                                         uint32_t va, uint32_t nk,
+                                         uint32_t kn, const float* stats,
+                                         float dk[D / 8][4],
+                                         float dv[D / 8][4], int key, int q0,
+                                         int S, int causal, float scale,
+                                         int lane) {
+  constexpr int LD = D + 8, kTileBytes = kTile * LD * 2;
+  const int t = lane & 3;
+  int first = 0, last = kTile / 16;
+  if (kMask) {
+    last = min(last, (S - q0 + 15) / 16);
+    if (causal)  // rows above the warp's first key
+      first = max(0, (key - (lane >> 2) - q0) / 16);
+  }
+  const float scale2 = scale * kLog2e;
+  // not unrolled, as in dq_tile
+#pragma unroll 1
+  for (int c = first; c < last; ++c) {
+    float st[2][4], dpt[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[nt][i] = dpt[nt][i] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc) {
+      uint32_t ak[4], av[4], bq[4], bo[4];
+      if constexpr (kHold) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ak[i] = kf[kc][i];
+          av[i] = vf[kc][i];
+        }
+      } else {
+        ldsm_x4(ak, ka + kc * 32);
+        ldsm_x4(av, va + kc * 32);
+      }
+      ldsm_x4(bq, nk + (c * 16 * LD + kc * 16) * 2);
+      ldsm_x4(bo, nk + kTileBytes + (c * 16 * LD + kc * 16) * 2);
+      mma16816(st[0], ak, bq[0], bq[1]);
+      mma16816(st[1], ak, bq[2], bq[3]);
+      mma16816(dpt[0], av, bo[0], bo[1]);
+      mma16816(dpt[1], av, bo[2], bo[3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      // this lane's two q rows of the 8-wide n-tile
+      const int col = c * 16 + nt * 8 + 2 * t;
+      const float2 lse = *reinterpret_cast<const float2*>(stats + col);
+      const float2 dl = *reinterpret_cast<const float2*>(stats + kTile + col);
+      // -LSE·log2(e) of the two rows, once as the lane reads them
+      const float nl2[2] = {-lse.x * kLog2e, -lse.y * kLog2e};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = st[nt][i];
+        if constexpr (kMask) {
+          const int qr = q0 + col + (i & 1);
+          if (qr >= S || (causal && qr < key + (i >> 1) * 8)) x = -INFINITY;
+        }
+        const float pr = ex2(fmaf(x, scale2, nl2[i & 1]));
+        st[nt][i] = pr;
+        dpt[nt][i] = pr * (dpt[nt][i] - ((i & 1) ? dl.y : dl.x)) * scale;
+      }
+    }
+    uint32_t ap[4], ads[4];
+    c_to_a(ap, st[0], st[1]);
+    c_to_a(ads, dpt[0], dpt[1]);
+#pragma unroll
+    for (int dd = 0; dd < D / 16; ++dd) {
+      uint32_t bo[4], bq[4];
+      ldsm_x4_t(bo, kn + kTileBytes + (c * 16 * LD + dd * 16) * 2);
+      ldsm_x4_t(bq, kn + (c * 16 * LD + dd * 16) * 2);
+      mma16816(dv[2 * dd], ap, bo[0], bo[1]);
+      mma16816(dv[2 * dd + 1], ap, bo[2], bo[3]);
+      mma16816(dk[2 * dd], ads, bq[0], bq[1]);
+      mma16816(dk[2 * dd + 1], ads, bq[2], bq[3]);
+    }
+  }
 }
 
 template <int D, bool kCarry>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
-  constexpr int LD = D + 8;
+__global__ void __launch_bounds__(BwdShape<D>::kThreads,
+                                  BwdShape<D>::kMinCtas)
+    flash_bwd_dkv_kernel(Params p) {
+  using Shape = BwdShape<D>;
+  constexpr int LD = D + 8, kThreadsT = Shape::kThreads;
+  constexpr int kTileBytes = Shape::kTileBytes;
+  constexpr int kStageBytes = Shape::kDkvStage;
+  // at D 128 the K and V fragments would leave the accumulators too few
+  // registers: they are read from shared memory at every use instead
+  constexpr bool kHold = D <= 64;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sk = reinterpret_cast<bf16*>(smem);
-  bf16* sv = sk + kTile * LD;
-  bf16* sq = sv + kTile * LD;
-  bf16* sdo = sq + kTile * LD;
-  float* slse = reinterpret_cast<float*>(sdo + kTile * LD);
-  float* sdelta = slse + kTile;
+  const uint32_t sk = smem_addr(smem);
+  const uint32_t sv = sk + kTileBytes;
+  const int ring_off = 2 * kTileBytes;  // the Q/dO stages, in bytes
+  const uint32_t sring = sk + ring_off;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int bkv = blockIdx.x, b = bkv / p.Hkv, hk = bkv % p.Hkv;
-  const int group = p.H / p.Hkv;
   const int n0 = blockIdx.y * kTile;  // the most q tiles first under causal
-  const int key = n0 + warp * 16 + (lane >> 2);  // and key + 8
-  load_tile<D>(sk, p.k + b * p.k_sb + hk * p.k_sh, p.k_ss, n0, p.S);
-  load_tile<D>(sv, p.v + b * p.v_sb + hk * p.v_sh, p.v_ss, n0, p.S);
+  const int kw0 = n0 + warp * 16;       // the warp's 16 keys
+  const int key = kw0 + (lane >> 2);    // and key + 8
+  load_tile_async<D, kTile, kThreadsT>(sk, p.k + b * p.k_sb + hk * p.k_sh,
+                                       p.k_ss, n0, p.S);
+  load_tile_async<D, kTile, kThreadsT>(sv, p.v + b * p.v_sb + hk * p.v_sh,
+                                       p.v_ss, n0, p.S);
+  // the walk: every q tile of every q head of the group, one ring across
+  // head boundaries; under causal the first q tile that reaches this CTA's
+  // keys starts at n0 (a multiple of kTile)
+  const int qstart = p.causal ? n0 : 0;
+  const int nq = (p.S - qstart + kTile - 1) / kTile;
+  const int ntiles = (p.H / p.Hkv) * nq;
+  load_q_tile<D, kThreadsT>(sring, p, b, hk, qstart, nq, 0);
+  cp_async_commit();
 
   float dk[D / 8][4], dv[D / 8][4];
   if constexpr (kCarry) {
@@ -780,33 +1029,44 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
       for (int i = 0; i < 4; ++i) dk[nt][i] = dv[nt][i] = 0.f;
   }
 
-  // tiles are square, so under causal the first q tile that reaches this
-  // k tile is the one that starts at n0
-  const int qstart = p.causal ? n0 : 0;
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi;
-    const long long bh = static_cast<long long>(b) * p.H + h;
-    const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
-    const bf16* dob = p.dout + b * p.do_sb + h * p.do_sh;
-    for (int q0 = qstart; q0 < p.S; q0 += kTile) {
-      __syncthreads();
-      load_tile<D>(sq, qb, p.q_ss, q0, p.S);
-      load_tile<D>(sdo, dob, p.do_ss, q0, p.S);
-      load_rows(slse, p.lse_in + bh * p.S, q0, p.S);
-      load_rows(sdelta, p.delta + bh * p.S, q0, p.S);
-      __syncthreads();
-      float st[8][4], dpt[8][4];  // Sᵀ and dPᵀ: 16 keys x 64 q rows
+  cp_async_wait_all();
+  __syncthreads();
+  const uint32_t a_off = lane_a<D>(lane) + warp * 16 * LD * 2;
+  uint32_t kf[kHold ? D / 16 : 1][4], vf[kHold ? D / 16 : 1][4];
+  if constexpr (kHold) {
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) st[nt][i] = dpt[nt][i] = 0.f;
-      dot_nt<D, 8>(st, sk + warp * 16 * LD, sq, lane);    // K·Qᵀ
-      dot_nt<D, 8>(dpt, sv + warp * 16 * LD, sdo, lane);  // V·dOᵀ
-      recompute<false>(p.S, p.causal, p.scale, st, dpt, slse, sdelta, key,
-                       q0, 0, lane);
-      dot_pv<D>(dv, st, sdo, lane);                       // Pᵀ·dO
-      dot_pv<D>(dk, dpt, sq, lane);                       // dSᵀ·Q
+    for (int kc = 0; kc < D / 16; ++kc) {
+      ldsm_x4(kf[kc], sk + a_off + kc * 32);
+      ldsm_x4(vf[kc], sv + a_off + kc * 32);
     }
+  }
+  const uint32_t nk = sring + lane_nk<D>(lane), kn = sring + lane_kn<D>(lane);
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it > 0) {
+      // tile it has landed, and every warp is done with tile it - 1,
+      // whose stage the next copies overwrite
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    if (it + 1 < ntiles)
+      load_q_tile<D, kThreadsT>(sring + ((it + 1) & 1) * kStageBytes, p, b,
+                                hk, qstart, nq, it + 1);
+    cp_async_commit();
+    const int q0 = qstart + (it % nq) * kTile;
+    // every row of the tile above every key of the warp
+    if (p.causal && q0 + kTile - 1 < kw0) continue;
+    const int stage = (it & 1) * kStageBytes;
+    const float* stats = reinterpret_cast<const float*>(
+        smem + ring_off + stage + 2 * kTileBytes);
+    if (q0 + kTile > p.S || (p.causal && q0 < kw0 + 15))
+      dkv_tile<D, kHold, true>(kf, vf, sk + a_off, sv + a_off, nk + stage,
+                               kn + stage, stats, dk, dv, key, q0, p.S,
+                               p.causal, p.scale, lane);
+    else
+      dkv_tile<D, kHold, false>(kf, vf, sk + a_off, sv + a_off, nk + stage,
+                                kn + stage, stats, dk, dv, key, q0, p.S,
+                                p.causal, p.scale, lane);
   }
   if constexpr (kCarry) {
     store_rows_f32<D>(p.dkf, dk, b, key, p.S, p.Hkv, hk, lane);
@@ -819,7 +1079,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, int smem, const Params& p,
-                   cudaStream_t st, int threads = kThreads) {
+                   cudaStream_t st, int threads) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -827,15 +1087,12 @@ cudaError_t launch(Kernel kernel, dim3 grid, int smem, const Params& p,
   return cudaGetLastError();
 }
 
-constexpr int tile_bytes(int d) { return kTile * (d + 8) * 2; }
-
 enum Which { kFwd, kDkv, kDq };
 
 template <int D, bool kCarry>
 cudaError_t launch_d(Which which, const Params& p, cudaStream_t st) {
-  const int tiles = (p.S + kTile - 1) / kTile;
-  const int bwd_smem = 4 * tile_bytes(D) + 2 * kTile * 4;
   constexpr int bm = kCarry ? PTD_RING_FWD_BLOCK_M : PTD_FLASH_FWD_BLOCK_M;
+  using Bwd = BwdShape<D>;
   switch (which) {
     case kFwd:
       return launch(flash_fwd_kernel<D, kCarry, bm>,
@@ -843,10 +1100,12 @@ cudaError_t launch_d(Which which, const Params& p, cudaStream_t st) {
                     FwdShape<D, bm>::kSmem, p, st, FwdShape<D, bm>::kThreads);
     case kDkv:
       return launch(flash_bwd_dkv_kernel<D, kCarry>,
-                    dim3(p.B * p.Hkv, tiles), bwd_smem, p, st);
+                    dim3(p.B * p.Hkv, (p.S + kTile - 1) / kTile),
+                    Bwd::kDkvSmem, p, st, Bwd::kThreads);
     default:
-      return launch(flash_bwd_dq_kernel<D, kCarry>, dim3(p.B * p.H, tiles),
-                    bwd_smem, p, st);
+      return launch(flash_bwd_dq_kernel<D, kCarry>,
+                    dim3(p.B * p.H, (p.S + kTile - 1) / kTile),
+                    Bwd::kDqSmem, p, st, Bwd::kThreads);
   }
 }
 
@@ -866,10 +1125,11 @@ int run(Which which, bool carry, Params& p, const long long* strides,
         int causal, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  long long* dst[4][3] = {{&p.q_sb, &p.q_ss, &p.q_sh},
+  long long* dst[5][3] = {{&p.q_sb, &p.q_ss, &p.q_sh},
                           {&p.k_sb, &p.k_ss, &p.k_sh},
                           {&p.v_sb, &p.v_ss, &p.v_sh},
-                          {&p.do_sb, &p.do_ss, &p.do_sh}};
+                          {&p.do_sb, &p.do_ss, &p.do_sh},
+                          {&p.o_sb, &p.o_ss, &p.o_sh}};
   for (int t = 0; t < nstrided; ++t)
     for (int j = 0; j < 3; ++j) *dst[t][j] = strides[3 * t + j];
   p.B = B;
@@ -926,15 +1186,20 @@ extern "C" int ptd_flash_bwd_dkv(const void* q, const void* k, const void* v,
              stream);
 }
 
+// delta [B, H, S] is written from O and dO (launch the dK/dV kernel
+// after this one, on the same stream, to read it); strides carry O's after
+// dO's
 extern "C" int ptd_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
-                                const void* delta, void* dq,
+                                void* delta, const void* o, void* dq,
                                 const long long* strides, int B, int S,
                                 int H, int Hkv, int D, float scale,
                                 int causal, void* stream) {
-  Params p = operands(q, k, v, dout, lse, delta);
+  Params p = operands(q, k, v, dout, lse);
+  p.o_in = static_cast<const bf16*>(o);
+  p.delta_out = static_cast<float*>(delta);
   p.dq = static_cast<bf16*>(dq);
-  return run(kDq, false, p, strides, 4, B, S, H, Hkv, D, scale, causal,
+  return run(kDq, false, p, strides, 5, B, S, H, Hkv, D, scale, causal,
              stream);
 }
 

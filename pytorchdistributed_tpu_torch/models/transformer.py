@@ -20,7 +20,7 @@ Two forward modes, one set of weights:
     scattered into the pool blocks ``tables[r, pos // block_size]`` at
     offset ``pos % block_size`` (positions past the context go to the
     trash block 0), then attention reads the pool: a single-token tick
-    (``s == 1``) on the paged kernel when ``paged_attn == "kernel"``,
+    (``s == 1``) on the paged kernel when ``paged_attn == "pallas"``,
     everything else on the gather tail. The pool is updated in place;
     the position counter is the caller's ``lengths``, which the engine
     advances on the host.
@@ -78,16 +78,17 @@ class TransformerConfig:
     # fp32 per-(token, head) scales ("int8"). kv_window_tokens > 0 turns
     # on sink + sliding-window attention: position j is attendable by
     # the query at p iff j < kv_sink_tokens or j > p - kv_window_tokens.
-    # paged_attn picks the decode tick's read: "kernel" (the paged
-    # attention kernel straight over the pool) or "gather" (reassemble
-    # the pages, then the masked dense tail).
+    # paged_attn picks the decode tick's read: "pallas" (the paged
+    # attention kernel straight over the pool; the name is the
+    # reference's, and "kernel" is accepted as an alias of it) or
+    # "gather" (reassemble the pages, then the masked dense tail).
     decode_slots: int = 0
     kv_block_size: int = 0
     kv_blocks: int = 0
     kv_dtype: str = "bf16"              # bf16 | int8
     kv_sink_tokens: int = 0
     kv_window_tokens: int = 0
-    paged_attn: str = "gather"          # gather | kernel
+    paged_attn: str = "gather"          # gather | pallas
 
     @property
     def head_dim(self) -> int:
@@ -143,9 +144,14 @@ class TransformerConfig:
         if self.kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"unknown kv_dtype {self.kv_dtype!r}; "
                              f"one of ('bf16', 'int8')")
-        if self.paged_attn not in ("gather", "kernel"):
+        if self.paged_attn == "kernel":
+            object.__setattr__(self, "paged_attn", "pallas")
+        if self.paged_attn not in ("gather", "pallas"):
             raise ValueError(f"unknown paged_attn {self.paged_attn!r}; "
-                             f"one of ('gather', 'kernel')")
+                             f"one of ('gather', 'pallas')")
+        if self.paged_attn == "pallas" and not self.kv_block_size:
+            raise ValueError("paged_attn='pallas' requires the paged KV "
+                             "pool (kv_block_size > 0)")
         if self.kv_sink_tokens < 0 or self.kv_window_tokens < 0:
             raise ValueError("kv_sink_tokens / kv_window_tokens must be "
                              ">= 0")
@@ -357,7 +363,7 @@ class SelfAttention(nn.Module):
             kc_pool[blk, off] = k.to(cfg.dtype)
             vc_pool[blk, off] = v.to(cfg.dtype)
             ks = vs = None
-        if pc.paged_attn == "kernel" and s == 1:
+        if pc.paged_attn == "pallas" and s == 1:
             # decode tick: q attends the pool straight through the block
             # table; the gathered copy below never materializes
             from pytorchdistributed_tpu_torch.ops.paged_attention import (

@@ -9,8 +9,10 @@ with grouped-query attention native: k/v may carry ``H_kv`` heads with
 The forward writes ``O`` and the fp32 row log-sum-exp ``LSE`` (``[B, H,
 S]``), the backward's only softmax residual. The backward recomputes
 ``P = exp(S - LSE)`` block by block and forms ``dS = P * (dO·Vᵀ - Δ) *
-scale`` with ``Δ = rowsum(dO * O)``, taken here as a plain torch op (the
-reference leaves it to XLA outside its kernels).
+scale`` with ``Δ = rowsum(dO * O)`` (the reference leaves Δ to XLA
+outside its kernels): on CUDA the dQ kernel forms Δ for its own rows and
+writes it for the dK/dV kernel, which launches after it; the plain twin
+takes it as a torch op (``_delta``).
 
 Two implementations of each half:
 
@@ -19,7 +21,8 @@ Two implementations of each half:
     bfloat16 only: a float32 CUDA input is refused with a ``TypeError``
     (there is no non-tensor-core path). ``head_dim`` must be 32, 64 or
     128. The kernels pick their own tiles — the forward 128-row q tiles
-    over 64-key K/V tiles, the backward 64 by 64 — so ``block_q`` /
+    over 64-key K/V tiles; the backward a 64-row CTA side (q rows of dQ,
+    keys of dK/dV) over 64-row tiles of the other side — so ``block_q`` /
     ``block_k`` (a VMEM choice on the TPU) do not reach them;
   * ``flash_attention_fwd_plain`` / ``flash_attention_bwd_plain``, the
     same blocked online-softmax recurrence in plain PyTorch, looping over
@@ -208,17 +211,19 @@ def _kernel_operand(t):
 
 
 def _kernel_inputs(*ts):
-    """(q, k, v[, dO]) checked for the kernels and in their layout."""
+    """(q, k, v[, dO[, O]]) checked for the kernels and in their
+    layout."""
     q = ts[0]
     _check_shapes(*ts[:3])
-    if len(ts) > 3 and ts[3].shape != q.shape:
-        raise ValueError(f"dO {tuple(ts[3].shape)} does not match q "
-                         f"{tuple(q.shape)}")
+    for name, t in zip(("dO", "O"), ts[3:]):
+        if t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match q "
+                             f"{tuple(q.shape)}")
     for t in ts:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"the flash attention kernels take bfloat16 "
-                            f"q/k/v/dO on CUDA, got {t.dtype} (no float32 "
-                            f"kernel path)")
+                            f"q/k/v/dO/O on CUDA, got {t.dtype} (no "
+                            f"float32 kernel path)")
         if t.device != q.device:
             raise ValueError(f"all operands must be on {q.device}; got a "
                              f"tensor on {t.device}")
@@ -253,7 +258,7 @@ def _lib():
     tail = [ll, i, i, i, i, i, ctypes.c_float, i, vp]
     # the ring's hop entries (ops/ring_attention.py) share the tail
     for fn, pointers in ((lib.ptd_flash_fwd, 5), (lib.ptd_flash_bwd_dkv, 8),
-                         (lib.ptd_flash_bwd_dq, 7), (lib.ptd_ring_fwd, 6),
+                         (lib.ptd_flash_bwd_dq, 8), (lib.ptd_ring_fwd, 6),
                          (lib.ptd_ring_bwd_dkv, 8), (lib.ptd_ring_bwd_dq, 7)):
         fn.argtypes = [vp] * pointers + tail
         fn.restype = ctypes.c_int
@@ -282,19 +287,33 @@ def _launch_fwd(q, k, v, causal, scale):
 
 
 def _bwd_operands(q, k, v, o, lse, do):
-    """The backward kernels' operands ``(q, k, v, dO, LSE, Δ)``."""
-    q, k, v, do = _kernel_inputs(q, k, v, do)
+    """The backward kernels' operands ``(q, k, v, dO, O, LSE)``, checked
+    and in their layout."""
+    q, k, v, do, o = _kernel_inputs(q, k, v, do, o)
     b, s, h, _ = q.shape
-    if (lse.shape != (b, h, s) or lse.dtype != torch.float32
-            or o.shape != q.shape):
-        raise ValueError(f"O {tuple(o.shape)} / LSE {tuple(lse.shape)} "
-                         f"{lse.dtype} are not the forward's outputs for q "
-                         f"{tuple(q.shape)} (LSE [B, H, S] float32)")
-    return q, k, v, do, lse.contiguous(), _delta(o, do)
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32:
+        raise ValueError(f"LSE {tuple(lse.shape)} {lse.dtype} is not the "
+                         f"forward's for q {tuple(q.shape)} ([B, H, S] "
+                         f"float32)")
+    return q, k, v, do, o, lse.contiguous()
+
+
+def _launch_dq(q, k, v, do, o, lse, causal, scale):
+    """The dQ kernel on ``_bwd_operands``: ``(dQ like q, Δ [B, H, S])``,
+    Δ formed by the kernel from O and dO."""
+    b, s, h, _ = q.shape
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    err = _lib().ptd_flash_bwd_dq(
+        *(t.data_ptr() for t in (q, k, v, do, lse, delta, o)), dq.data_ptr(),
+        _strides(q, k, v, do, o), *_dims(q, k, scale, causal))
+    _check(err, "flash_bwd_dq")
+    return dq, delta
 
 
 def _launch_dkv(q, k, v, do, lse, delta, causal, scale):
-    """The dK/dV kernel on ``_bwd_operands``: ``(dK, dV)`` like k, v."""
+    """The dK/dV kernel on ``_bwd_operands``' q, k, v, dO and LSE, with
+    the Δ that ``_launch_dq`` returned: ``(dK, dV)`` like k, v."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     err = _lib().ptd_flash_bwd_dkv(
@@ -304,22 +323,12 @@ def _launch_dkv(q, k, v, do, lse, delta, causal, scale):
     return dk, dv
 
 
-def _launch_dq(q, k, v, do, lse, delta, causal, scale):
-    """The dQ kernel on ``_bwd_operands``: dQ like q."""
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = _lib().ptd_flash_bwd_dq(
-        *(t.data_ptr() for t in (q, k, v, do, lse, delta)), dq.data_ptr(),
-        _strides(q, k, v, do), *_dims(q, k, scale, causal))
-    _check(err, "flash_bwd_dq")
-    return dq
-
-
 def _launch_bwd(q, k, v, o, lse, do, causal, scale):
-    """The two backward kernels, dK/dV first: ``(dQ, dK, dV)``, each
-    contiguous in its input's layout."""
-    ops = _bwd_operands(q, k, v, o, lse, do)
-    dk, dv = _launch_dkv(*ops, causal, scale)
-    return _launch_dq(*ops, causal, scale), dk, dv
+    """The two backward kernels, dQ first (it forms Δ, which dK/dV reads):
+    ``(dQ, dK, dV)``, each contiguous in its input's layout."""
+    q, k, v, do, o, lse = _bwd_operands(q, k, v, o, lse, do)
+    dq, delta = _launch_dq(q, k, v, do, o, lse, causal, scale)
+    return (dq, *_launch_dkv(q, k, v, do, lse, delta, causal, scale))
 
 
 def _route(t, what: str = "flash attention") -> bool:

@@ -12,7 +12,8 @@ PyTorch counterpart of the paged mode of
     model forward over ``[slots, 1]`` last tokens (each slot at its own
     position, its K/V written into its own blocks) + the per-slot
     sampler. On CUDA the tick's attention is the paged kernel
-    (``ops/paged_attention.py``) unless ``paged_attn="gather"``;
+    (``ops/paged_attention.py``) unless ``paged_attn`` resolves to
+    "gather";
   * ``paged_prefill_chunk`` runs one fixed-size prompt chunk of one
     request straight into its blocks, so long admissions interleave with
     decode ticks instead of blocking resident streams;
@@ -33,6 +34,7 @@ import collections
 import contextlib
 import dataclasses
 import itertools
+import os
 import time
 
 import numpy as np
@@ -199,9 +201,12 @@ class ServingEngine:
       kv_sink_tokens / kv_window_tokens: sink + sliding-window attention
         (block multiples); fully dead middle blocks retire back to the
         allocator mid-stream. None inherits the model cfg.
-      paged_attn: the decode tick's read, "kernel" (the paged attention
-        kernel) or "gather"; None = "kernel" on CUDA, "gather" on the
-        CPU. Prefill chunks always gather.
+      paged_attn: the decode tick's read, "pallas" (the paged attention
+        kernel; the reference's name, with "kernel" as an alias) or
+        "gather"; "auto" is "pallas" on CUDA and "gather" on the CPU.
+        None resolves as the reference's engine does: the model cfg's
+        value when it is not "gather", else the PTD_PAGED_ATTN env var,
+        else "auto". Prefill chunks always gather.
       device: where the model and the pool live; "cuda" by default, and
         asking for CUDA without one raises.
     """
@@ -234,10 +239,18 @@ class ServingEngine:
         window = mcfg.kv_window_tokens if kv_window_tokens is None \
             else kv_window_tokens
         if paged_attn is None:
-            paged_attn = "kernel" if self.device.type == "cuda" else "gather"
-        if paged_attn not in ("gather", "kernel"):
-            raise ValueError(f"paged_attn must be 'gather' or 'kernel', got "
-                             f"{paged_attn!r}")
+            paged_attn = (mcfg.paged_attn if mcfg.paged_attn != "gather"
+                          else os.environ.get("PTD_PAGED_ATTN", "auto"))
+        if paged_attn == "kernel":
+            paged_attn = "pallas"
+        if paged_attn not in ("auto", "gather", "pallas"):
+            raise ValueError(
+                f"paged_attn must be 'auto', 'gather' or 'pallas', got "
+                f"{paged_attn!r}")
+        if paged_attn == "auto":
+            # the kernel on the card; the CPU keeps the gather read, the
+            # reference's bitwise path
+            paged_attn = "pallas" if self.device.type == "cuda" else "gather"
         max_len = mcfg.max_seq_len
         if max_len % block_size:
             raise ValueError(f"block_size {block_size} must divide "

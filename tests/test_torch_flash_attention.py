@@ -6,8 +6,9 @@ backward the CUDA kernels compute). It is held here against the JAX
 package's Pallas ``flash_attention`` in interpret mode on the same numpy
 inputs, both at ``block_q = block_k = 16``: the output and all three
 gradients, causal and not, grouped-query (8 q heads over 2 kv heads), a
-ragged ``S = 37`` and an autograd ``dO`` of stride 0; the forward and
-its LSE also at unequal blocks (32, 16) and (16, 32). fp32 runs at the
+ragged ``S = 37`` and an autograd ``dO`` of stride 0; the forward, its
+LSE and the three gradients also at unequal blocks (32, 16) and (16,
+32). fp32 runs at the
 reference suite's own tolerance (atol 2e-5, tests/test_attention.py).
 
 The CUDA kernels are held against the plain twins on the card by the
@@ -149,6 +150,29 @@ def test_unequal_blocks_match_jax_flash(block_q, block_k):
                                np.asarray(jlse)[..., 0], atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("block_q,block_k", [(32, 16), (16, 32)])
+def test_unequal_blocks_grads_match_jax_flash(block_q, block_k):
+    """The backward at unequal q and k blocks, as the backward kernels may
+    tile (a CTA side and a streamed tile of different sizes): under causal
+    a q block meets two partly masked k blocks, or a k block two q blocks.
+    dQ, dK and dV against ``jax.grad`` of the Pallas ``flash_attention``
+    on the same blocks (GQA 8 q over 2 kv heads, ragged S = 37)."""
+    jax, jnp, jax_flash, _ = _jax()
+    q, k, v, do = _inputs(s=37, h=8, hk=2, d=16, seed=23)
+    blk = dict(block_q=block_q, block_k=block_k)
+
+    def loss(*a):
+        return (jax_flash(*a, causal=True, **blk) * jnp.asarray(do)).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    (flash_attention(*ts, causal=True, **blk)
+     * torch.from_numpy(do)).sum().backward()
+    for name, t, w in zip(("dq", "dk", "dv"), ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=ATOL,
+                                   rtol=0, err_msg=name)
+
+
 def test_stride_zero_dout_matches_jax():
     """``out.sum().backward()`` hands the backward an expanded dO whose
     strides are all 0."""
@@ -231,8 +255,11 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 def _cuda_case(dev, variant):
     """(q, k, v, dO, causal) bf16 on the card; "fused" takes q/k/v as the
     strided views of one [B, S, 3, H, D] projection output. The forward
-    takes 128-row q tiles and 64-key K/V tiles: "s64" and "s96" are less
-    than one q tile, "s200" ends in a ragged diagonal."""
+    takes 128-row q tiles and 64-key K/V tiles, the backward 64-row CTA
+    sides over streamed 64-row tiles: "s64" and "s96" are less than one
+    q tile, "s200" ends in a ragged diagonal, "s5" is shorter than one
+    16-row chunk, and in "gqa4" and "gqa4_full" the dK/dV kernel's walk
+    crosses four q heads at a ragged S."""
     b, s, h, hk, d, causal = {
         "causal": (2, 256, 4, 4, 64, True),
         "full": (2, 256, 4, 4, 64, False),
@@ -244,6 +271,9 @@ def _cuda_case(dev, variant):
         "s200": (2, 200, 4, 4, 64, True),
         "d32": (2, 512, 4, 4, 32, True),
         "d128": (2, 512, 4, 4, 128, True),
+        "gqa4": (2, 200, 8, 2, 64, True),
+        "gqa4_full": (2, 77, 8, 2, 32, False),
+        "s5": (2, 5, 4, 4, 64, True),
     }[variant]
     g = torch.Generator().manual_seed(0)
     if variant == "fused":
@@ -259,7 +289,8 @@ def _cuda_case(dev, variant):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["causal", "full", "gqa", "ragged",
-                                     "fused"])
+                                     "fused", "s64", "s96", "s200", "d32",
+                                     "d128", "gqa4", "gqa4_full", "s5"])
 def test_kernels_match_plain_on_cuda(cuda_device, variant):
     """Forward (O, LSE) and backward (dQ, dK, dV) kernels against the
     plain twins on the same bf16 inputs: outputs round to bf16 (2^-8
@@ -282,35 +313,21 @@ def test_kernels_match_plain_on_cuda(cuda_device, variant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["s64", "s96", "s200", "d32", "d128"])
-def test_forward_matches_plain_on_cuda(cuda_device, variant):
-    """The forward kernel alone (O, LSE) against its plain twin where its
-    tiling has edges: shorter than one q tile, a ragged diagonal, and
-    head_dim 32 and 128."""
-    q, k, v, _, causal = _cuda_case(cuda_device, variant)
-    n0 = fa.launches["flash_fwd"]
-    o, lse = fa._launch_fwd(q, k, v, causal, q.shape[-1] ** -0.5)
-    torch.cuda.synchronize()
-    assert fa.launches["flash_fwd"] == n0 + 1
-    po, plse = flash_attention_fwd_plain(q, k, v, causal=causal)
-    torch.testing.assert_close(o.float(), po.float(), **BF16_TOL)
-    torch.testing.assert_close(lse, plse, atol=1e-3, rtol=1e-3)
-
-
-@pytest.mark.cuda
 def test_backward_is_deterministic_on_cuda(cuda_device):
     """No atomics: two backward runs give bitwise-equal grads, and an
-    expanded dO (stride 0) is taken."""
-    q, k, v, _, causal = _cuda_case(cuda_device, "gqa")
-    ts = [t.clone().requires_grad_() for t in (q, k, v)]
-    runs = []
-    for _ in range(2):
-        for t in ts:
-            t.grad = None
-        flash_attention(*ts, causal=causal).sum().backward()
-        runs.append([t.grad.clone() for t in ts])
-    for a, b in zip(*runs):
-        assert torch.equal(a, b)
+    expanded dO (stride 0) is taken; "gqa4" crosses q heads in the dK/dV
+    walk."""
+    for variant in ("gqa", "gqa4"):
+        q, k, v, _, causal = _cuda_case(cuda_device, variant)
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        runs = []
+        for _ in range(2):
+            for t in ts:
+                t.grad = None
+            flash_attention(*ts, causal=causal).sum().backward()
+            runs.append([t.grad.clone() for t in ts])
+        for a, b in zip(*runs):
+            assert torch.equal(a, b), variant
 
 
 @pytest.mark.cuda

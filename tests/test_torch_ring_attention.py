@@ -10,8 +10,9 @@ tests/test_attention.py):
     (plain versions) and ``_xla_*_update`` against the JAX
     ``_pallas_*_update`` in Pallas interpret mode, from non-trivial
     carries, diagonal and fully visible, at block 16 and at block 12
-    against S_local 16 (the padded tail); the diagonal forward hop also at
-    unequal blocks (32, 16) and (16, 32) over S_local 37;
+    against S_local 16 (the padded tail); the diagonal forward and
+    backward hops also at unequal blocks (32, 16) and (16, 32) over
+    S_local 37;
   * the whole op: ``ring_attention_sharded`` under a port mesh ``seq=4``
     against the JAX one under ``create_mesh(data=2, seq=4)`` — output and
     the grads of ``sum(out · dO)``, causal and not, both impls;
@@ -185,6 +186,32 @@ def test_bwd_hop_matches_jax(impl, blk, causal):
     got = update(t["q"], t["k"], t["v"], t["do"], torch.from_numpy(lse),
                  t["delta"], t["dq"], t["dk"], t["dv"], causal=causal,
                  spec=spec)
+    for name, a, w in zip(("dq", "dk", "dv"), got, (jdq, jdk, jdv)):
+        np.testing.assert_allclose(a.numpy(), _unfold(np.asarray(w), B, H),
+                                   atol=ATOL, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("block_q,block_k", [(32, 16), (16, 32)])
+def test_bwd_hop_unequal_blocks_match_jax(block_q, block_k):
+    """The diagonal backward hop at unequal q and k blocks over a ragged
+    S_local 37: the plain hop (``ring_bwd_update_plain``) against the JAX
+    ``_pallas_bwd_update`` on the same blocks, into the same carries."""
+    _, jnp, jring, _ = _jax()
+    x = _hop_inputs(s=37, seed=5)
+    lse = _lse(x, True)
+    kw = dict(axis_name=Axis.SEQ, causal=True, scale=D ** -0.5,
+              block_q=block_q, block_k=block_k)
+    jdq, jdk, jdv = jring._pallas_bwd_update(
+        *(jnp.asarray(_fold(x[n])) for n in ("q", "k", "v", "do")),
+        jnp.asarray(_rows(lse)), jnp.asarray(_rows(x["delta"])),
+        *(jnp.asarray(_fold(x[n])) for n in ("dq", "dk", "dv")),
+        causal=True, spec=jring._RingSpec(impl="pallas", interpret=True,
+                                          **kw))
+    t = {n: torch.from_numpy(x[n].copy()) for n in x}
+    got = ring.ring_bwd_update_plain(
+        t["q"], t["k"], t["v"], t["do"], torch.from_numpy(lse), t["delta"],
+        t["dq"], t["dk"], t["dv"], causal=True, scale=D ** -0.5,
+        block_q=block_q, block_k=block_k)
     for name, a, w in zip(("dq", "dk", "dv"), got, (jdq, jdk, jdv)):
         np.testing.assert_allclose(a.numpy(), _unfold(np.asarray(w), B, H),
                                    atol=ATOL, rtol=0, err_msg=name)

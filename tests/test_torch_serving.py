@@ -4,10 +4,12 @@ Same weights (carried with ``params_from_jax``), same fp32 model (2
 layers, max_seq_len 64), same engine geometry (block_size 8, 3 slots,
 prefill_bucket 16) and the same staggered workload: the port's greedy
 token streams must equal the JAX engine's (``paged_attn="gather"``)
-EXACTLY, on the port's gather read and on its kernel read (the plain
-twin on the CPU). The pool is sized so the workload takes a prefix-cache
-hit and a preemption, and both engines must agree on those counters
-too; ``close()`` then runs the allocator's leak check.
+EXACTLY, on the port's gather read and on its kernel read
+(``paged_attn="pallas"``, the plain twin on the CPU). The pool is sized
+so the workload takes a prefix-cache hit and a preemption, and both
+engines must agree on those counters too; ``close()`` then runs the
+allocator's leak check. Both engines resolve ``paged_attn`` from the
+same config, ``PTD_PAGED_ATTN`` setting and argument to the same value.
 """
 
 import json
@@ -78,7 +80,7 @@ def _port_model(tree):
     return model
 
 
-@pytest.mark.parametrize("paged_attn", ["gather", "kernel"])
+@pytest.mark.parametrize("paged_attn", ["gather", "pallas"])
 def test_greedy_streams_equal_jax_engine(jax_run, paged_attn):
     tree, (ref_tokens, ref_preempt, ref_hits) = jax_run
     assert ref_preempt >= 1 and ref_hits > 0  # the workload bites
@@ -89,6 +91,69 @@ def test_greedy_streams_equal_jax_engine(jax_run, paged_attn):
     assert (preempt, hits) == (ref_preempt, ref_hits)
     assert engine.summary()["paged_attn"] == paged_attn
     engine.close()  # free + resident == pool, then a clean pool
+
+
+# the model config's paged_attn, PTD_PAGED_ATTN, the engine argument, and
+# what the engine resolves them to on the CPU
+RESOLUTION_CASES = {
+    "config_gather_no_env": ("gather", None, None, "gather"),
+    "env_pallas": ("gather", "pallas", None, "pallas"),
+    "config_pallas": ("pallas", None, None, "pallas"),
+    "config_pallas_over_env": ("pallas", "gather", None, "pallas"),
+    "arg_auto": ("gather", None, "auto", "gather"),
+    "arg_gather": ("gather", None, "gather", "gather"),
+    "arg_gather_over_env": ("gather", "pallas", "gather", "gather"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESOLUTION_CASES))
+def test_paged_attn_resolves_as_the_jax_engine(jax_run, monkeypatch, case):
+    """``paged_attn=None`` takes the model config's value unless it is
+    "gather", then ``PTD_PAGED_ATTN``, then "auto" (the kernel on an
+    accelerator, the gather read on the CPU): both engines resolve each
+    case to the same value, and report it in ``summary()``."""
+    cfg_attn, env, arg, want = RESOLUTION_CASES[case]
+    tree, _ = jax_run
+    if env is None:
+        monkeypatch.delenv("PTD_PAGED_ATTN", raising=False)
+    else:
+        monkeypatch.setenv("PTD_PAGED_ATTN", env)
+    paging = dict(paged_attn=cfg_attn, kv_block_size=GEOM["block_size"],
+                  kv_blocks=GEOM["num_blocks"],
+                  decode_slots=GEOM["num_slots"])
+    jcfg = jax_gpt2_config("test", num_layers=2, max_seq_len=64,
+                           scan_layers=False, dtype=jnp.float32,
+                           decode=True, **paging)
+    jengine = JaxEngine(JaxGPT2(jcfg), tree, paged_attn=arg, **GEOM)
+    cfg = gpt2_config("test", num_layers=2, max_seq_len=64,
+                      dtype=torch.float32, **paging)
+    engine = ServingEngine(GPT2(cfg), paged_attn=arg, device="cpu", **GEOM)
+    got = (jengine.summary()["paged_attn"], engine.summary()["paged_attn"])
+    jengine.close()
+    engine.close()
+    assert got == (want, want)
+
+
+def test_paged_attn_kernel_alias_and_unknown_names():
+    """The port's earlier name "kernel" reads "pallas" in the config and
+    in the engine; an unknown name raises in both."""
+    paging = dict(kv_block_size=GEOM["block_size"],
+                  kv_blocks=GEOM["num_blocks"],
+                  decode_slots=GEOM["num_slots"])
+    cfg = gpt2_config("test", num_layers=2, max_seq_len=64,
+                      dtype=torch.float32, paged_attn="kernel", **paging)
+    assert cfg.paged_attn == "pallas"
+    engine = ServingEngine(GPT2(cfg), paged_attn="kernel", device="cpu",
+                           **GEOM)
+    assert engine.paged_attn == engine.summary()["paged_attn"] == "pallas"
+    engine.close()
+    with pytest.raises(ValueError, match="'auto', 'gather' or 'pallas'"):
+        ServingEngine(GPT2(gpt2_config("test", num_layers=2)),
+                      paged_attn="flash", device="cpu", **GEOM)
+    with pytest.raises(ValueError, match="unknown paged_attn"):
+        gpt2_config("test", paged_attn="flash", **paging)
+    with pytest.raises(ValueError, match="requires the paged KV pool"):
+        gpt2_config("test", paged_attn="pallas")
 
 
 def test_sampled_streams_follow_their_own_generator(jax_run):
