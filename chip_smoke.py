@@ -9,13 +9,22 @@ Phases (any failure raises, so the exit code is not 0):
   2. build   — compile every kernel of the serving, training and ring
                paths from csrc/ with nvcc (one process per source, all started
                together) into build/; print each kernel's registers and
-               spill bytes from the ptxas report, and fail if a flash
+               spill bytes from the ptxas report, every instantiation
+               under its own name, and fail if a flash or paged
                instantiation spills.
   3. kernels — hold the paged decode kernel against its plain PyTorch
-               twin on the card at the shapes the serving path gives it,
-               within a stated tolerance, and time kernel, plain twin and
-               the library yardstick (paged gather + SDPA) beside the
-               bound.
+               twin on the card within a stated tolerance, two launches
+               bitwise equal, at four timed shapes (the serving tick's
+               8 slots x 12 heads x D 64 at block 16; all 8 slots at
+               length 1023; one slot at 1023; 32 q heads over 8 kv heads)
+               and three checked ones (int8 pool, sink + window, a GQA
+               group of 8). Each timed case cycles through enough pool
+               copies that a cycle's live K/V exceeds twice the L2, and
+               is timed on the device clock (every kernel of a call, from
+               the profiler) with CUDA events beside it, at the run
+               length the wrapper picks and at others; beside it the
+               plain twin, the library yardstick (paged gather + SDPA,
+               device clock and events) and the bound.
   3b. flash  — the same for the three flash attention kernels (forward,
                dK/dV, dQ) at the training shape (B 8, S 1024, H 12, D 64,
                bf16, causal), two GQA shapes (H 32 over 8 kv heads, S
@@ -113,19 +122,72 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# short names for the type template arguments the port's kernels take
+MANGLED_TYPES = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16"}
+
+
+def demangle_kernel(sym: str) -> str:
+    """A kernel's name with its template arguments, from its Itanium
+    symbol: ``_Z16flash_fwd_kernelILi64ELb0ELi128EEv…`` gives
+    ``flash_fwd_kernel<64, false, 128>``, and a kernel in an anonymous
+    namespace with type arguments ``paged_attention_kernel<bf16, int8,
+    64, 8>`` (substitutions such as ``S1_`` resolved). Reads only the
+    grammar those kernels use; anything else keeps the whole symbol, so
+    no two instantiations share a name."""
+    try:
+        i, subs, parts, args = 2, [], [], []
+        nested = sym[i] == "N"
+        i += nested
+
+        def source_name():
+            nonlocal i
+            n = re.match(r"\d+", sym[i:]).group()
+            i += len(n) + int(n)
+            return sym[i - int(n):i]
+
+        while sym[i].isdigit():
+            parts.append(source_name())
+            subs.append("::".join(parts))   # each prefix is a candidate
+            if not nested:
+                break
+        if sym[i] == "I":
+            i += 1
+            while sym[i] != "E":
+                m = re.match(r"L([ib])(n?)(\d+)E|S([0-9A-Z]*)_|(\d+)|([a-z])",
+                             sym[i:])
+                i += len(m.group())
+                if m.group(1):            # an integer or bool literal
+                    v = m.group(2).replace("n", "-") + m.group(3)
+                    args.append({"0": "false", "1": "true"}[v]
+                                if m.group(1) == "b" else v)
+                    continue
+                if m.group(5):            # a named type: a new candidate
+                    i -= len(m.group())
+                    name = source_name()
+                    subs.append(name)
+                    token = m.group(5) + name
+                elif m.group(6):          # a builtin type
+                    token = m.group(6)
+                else:                     # S_ is candidate 0, S<n>_ n + 1
+                    k = int(m.group(4), 36) + 1 if m.group(4) else 0
+                    name = subs[k]
+                    token = f"{len(name)}{name}"
+                args.append(MANGLED_TYPES.get(
+                    token, token.lstrip("0123456789")))
+        return parts[-1] + (f"<{', '.join(args)}>" if args else "")
+    except (AttributeError, IndexError, KeyError, ValueError):
+        return sym
+
+
 def ptxas_kernels(report: str) -> dict:
     """{kernel: {"registers": n, "spill_bytes": stores + loads}} from an
-    ``nvcc -Xptxas -v`` report, each name demangled as far as its
-    integer and bool template arguments (``flash_fwd_kernel<64, false,
-    128>``)."""
+    ``nvcc -Xptxas -v`` report, each name demangled with its template
+    arguments (``demangle_kernel``)."""
     out, name = {}, None
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '_Z\w*?\d+((?:[a-z]+_)*"
-                      r"kernel)(?:I((?:L[ib]\d+E)+)E)?", line)
+        m = re.search(r"Compiling entry function '(_Z\w+)'", line)
         if m:
-            args = [("true" if v == "1" else "false") if t == "b" else v
-                    for t, v in re.findall(r"L([ib])(\d+)E", m.group(2) or "")]
-            name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+            name = demangle_kernel(m.group(1))
             out[name] = {"registers": None, "spill_bytes": 0}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -191,13 +253,14 @@ def kernel_device_ms(fn, reps: int, kernel: str) -> float:
 
 
 def call_device_ms(fn, reps: int) -> tuple[float, float]:
-    """(device ms per call, kernels per call) of ``fn()``: the sum of every
-    CUDA kernel's device time that torch.profiler records over ``reps``
-    calls (after two warm-up calls), divided by ``reps`` — what a call
-    costs the device, whatever it launches, without the host's gaps. The
-    tracer may drop events (see ``kernel_device_ms``): a window counts
-    only if it saw every kernel name a whole number of times a call, and
-    up to three windows are tried."""
+    """(device ms per call, kernels per call) of ``fn()``: every CUDA
+    kernel's device time that torch.profiler records over ``reps`` calls
+    (after two warm-up calls), per call — what a call costs the device,
+    whatever it launches, without the host's gaps. The tracer may drop
+    events (see ``kernel_device_ms``): each kernel counts as launched
+    round(seen / reps) times a call at the mean of the launches seen, and
+    a window counts only if every kernel kept at least 90 % of those
+    launches and no more; up to three windows are tried."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -210,27 +273,50 @@ def call_device_ms(fn, reps: int) -> tuple[float, float]:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        counts, us = {}, 0.0
+        seen = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                counts[e.name] = counts.get(e.name, 0) + 1
-                us += e.time_range.elapsed_us()
-        if counts and all(n % reps == 0 for n in counts.values()):
-            return us / reps / 1e3, sum(counts.values()) / reps
-        log(f"  profiler window incomplete: {counts}")
+                n_us = seen.setdefault(e.name, [0, 0.0])
+                n_us[0] += 1
+                n_us[1] += e.time_range.elapsed_us()
+        per_call = {k: round(n / reps) for k, (n, _) in seen.items()}
+        if seen and all(per_call[k] and 0.9 * per_call[k] * reps <= n
+                        <= per_call[k] * reps for k, (n, _) in seen.items()):
+            if any(n < per_call[k] * reps for k, (n, _) in seen.items()):
+                log(f"  profiler kept {[n for n, _ in seen.values()]} of "
+                    f"{reps} calls' launches")
+            return (sum(us / n * per_call[k] for k, (n, us) in seen.items())
+                    / 1e3, sum(per_call.values()))
+        log(f"  profiler window incomplete: "
+            f"{ {k[:60]: n for k, (n, _) in seen.items()} }")
     raise SystemExit(f"FAILED: three profiler windows of {reps} calls "
                      f"each lost device events")
 
 
 # ---------------------------------------------------------------------------
-# phase 3: kernel against its plain twin
+# phase 3: the paged kernel against its plain twin
+
+
+L2_BYTES = 50e6                # H100 SXM L2 (data sheet)
+PAGED_REPLACES = "pytorchdistributed_tpu/ops/pallas_attention.py:482"
+PAGED_KERNELS = ("paged_attention_kernel", "paged_merge_kernel")
+SERVING_LENGTHS = [1, 15, 16, 255, 256, 600, 1000, 1023]
+# the timed cases: the serving tick's shape, every slot at full context,
+# one slot at full context (single-user decode) and a GQA group of 4
+PAGED_TIMED = (
+    ("serving_8x12x64_bs16", {}),
+    ("full_8x12x64_len1023", dict(lengths=[1023] * 8)),
+    ("decode_1x12x64_len1023", dict(slots=1, lengths=[1023])),
+    ("gqa_32q_8kv", dict(heads=32, kv_heads=8, seed=1)),
+)
 
 
 def paged_case(name, *, slots=8, heads=12, kv_heads=12, d=64, bs=16,
                pages=64, lengths=None, int8=False, sink=0, window=0,
-               copies=1, seed=0):
-    """Inputs at one shape: ``copies`` independent pools (cycling through
-    them keeps a timing loop from serving the pool out of L2)."""
+               timed=False, seed=0):
+    """Inputs at one shape. A timed case gets enough independent pools
+    that one cycle through them holds more than twice the L2 in live K/V
+    bytes, so a timing loop reads its K/V from device memory."""
     import torch
 
     from pytorchdistributed_tpu_torch.ops.quant import kv_quantize
@@ -238,20 +324,26 @@ def paged_case(name, *, slots=8, heads=12, kv_heads=12, d=64, bs=16,
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(seed)
     nb = slots * pages + 1
-    if lengths is None:
-        lengths = [1, 15, 16, 255, 256, 600, 1000, 1023][:slots]
+    lengths = (lengths or SERVING_LENGTHS)[:slots]
     tables = (torch.randperm(nb - 1, generator=gen)[:slots * pages] + 1)
     tables = tables.reshape(slots, pages).to(torch.int32)
     q = torch.randn(slots, heads, d, generator=gen)
+    row = kv_heads * d * (1 if int8 else 2) * 2   # K and V
+    if int8:
+        row += kv_heads * 4 * 2                   # their fp32 scales
     case = dict(name=name, q=q.to(dev, torch.bfloat16),
                 tables=tables.to(dev),
                 lengths=torch.tensor(lengths, dtype=torch.int32, device=dev),
-                kw=dict(sink_tokens=sink, window_tokens=window), pools=[])
-    for _ in range(copies):
-        k = torch.randn(nb, bs, kv_heads, d, generator=gen).to(
-            dev, torch.bfloat16)
-        v = torch.randn(nb, bs, kv_heads, d, generator=gen).to(
-            dev, torch.bfloat16)
+                kw=dict(sink_tokens=sink, window_tokens=window), pools=[],
+                kv_row_bytes=row)
+    live = live_tokens(case) * row
+    case["copies"] = int(2 * L2_BYTES // live) + 1 if timed else 1
+    case["cycle_bytes"] = case["copies"] * live
+    cuda_gen = torch.Generator(device=dev).manual_seed(seed)
+    for _ in range(case["copies"]):
+        k, v = (torch.randn(nb, bs, kv_heads, d, generator=cuda_gen,
+                            device=dev, dtype=torch.bfloat16)
+                for _ in range(2))
         if int8:
             (k, ks), (v, vs) = kv_quantize(k), kv_quantize(v)
             case["pools"].append((k, v, dict(k_scale=ks, v_scale=vs)))
@@ -269,17 +361,15 @@ def live_tokens(case) -> int:
 
 
 def bound_ms(case) -> tuple[float, str]:
+    """Live K/V rows (and scales) read once, q read and the output
+    written once, the tables and lengths read once, over 3.35 TB/s;
+    against q·k and p·v, 2 flops a product each, over 67 TFLOP/s fp32."""
     q = case["q"]
-    k, _, extra = case["pools"][0]
     slots, heads, d = q.shape
-    kv_heads = k.shape[2]
     toks = live_tokens(case)
-    row = kv_heads * d * k.element_size() * 2  # K and V
-    if extra:
-        row += kv_heads * 4 * 2                 # their fp32 scales
-    nbytes = (toks * row + 2 * q.numel() * q.element_size()
+    nbytes = (toks * case["kv_row_bytes"] + 2 * q.numel() * q.element_size()
               + case["tables"].numel() * 4 + slots * 4)
-    flops = toks * heads * d * 4               # q·k and p·v, 2 each
+    flops = toks * heads * d * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -313,21 +403,44 @@ def library_call(case, k, v, extra):
         attn_mask=valid[:, None, None], enable_gqa=rep > 1)[:, :, 0]
 
 
+def cycler(case):
+    """A function giving the case's pools in turn, one set a call."""
+    pools, it = case["pools"], iter(range(10 ** 9))
+    return lambda: pools[next(it) % len(pools)]
+
+
+def time_paged(case, attend) -> dict:
+    """``attend(q, k, v, tables, lengths, **kw)`` over the case's pools in
+    turn: the device-clock time of a call (every kernel it launches,
+    from the profiler) and CUDA events around 200 calls, host gaps and
+    all."""
+    q, tables, lengths, kw = (case["q"], case["tables"], case["lengths"],
+                              case["kw"])
+    rot = cycler(case)
+
+    def call():
+        k, v, ex = rot()
+        attend(q, k, v, tables, lengths, **kw, **ex)
+
+    ms, kernels = call_device_ms(call, 50)
+    return dict(ms=ms, kernels_per_call=kernels, ms_events=time_ms(call, 200))
+
+
 def run_case(case, *, timed: bool) -> dict:
     import torch
 
-    from pytorchdistributed_tpu_torch.ops.paged_attention import (
-        paged_flash_attention,
-        paged_flash_attention_plain,
-    )
+    from pytorchdistributed_tpu_torch.ops import paged_attention as pa
 
     q, tables, lengths, kw = (case["q"], case["tables"], case["lengths"],
                               case["kw"])
     k, v, extra = case["pools"][0]
-    got = paged_flash_attention(q, k, v, tables, lengths, **kw, **extra)
+    got = pa.paged_flash_attention(q, k, v, tables, lengths, **kw, **extra)
+    again = pa.paged_flash_attention(q, k, v, tables, lengths, **kw,
+                                     **extra)
     torch.cuda.synchronize()
-    want = paged_flash_attention_plain(q, k, v, tables, lengths, **kw,
-                                       **extra)
+    check(torch.equal(got, again), f"{case['name']}: two launches differ")
+    want = pa.paged_flash_attention_plain(q, k, v, tables, lengths, **kw,
+                                          **extra)
     check(bool(torch.isfinite(got).all()), f"{case['name']}: non-finite")
     err = (got.float() - want.float()).abs()
     tol = BF16_TOL * (1 + want.float().abs())
@@ -340,47 +453,58 @@ def run_case(case, *, timed: bool) -> dict:
     out = dict(name=case["name"], max_abs_err=max_err, lib_err=lib_err,
                live_tokens=live_tokens(case))
     if timed:
-        pools = case["pools"]
-        it = iter(range(10 ** 9))
+        per_split = pa._default_pages_per_split(q, k, tables)
+        pages = tables.shape[1]
+        out.update(time_paged(case, pa.paged_flash_attention))
+        rot = cycler(case)
 
-        def rot():
-            return pools[next(it) % len(pools)]
-
-        def kern():
+        def launch(pages_per_split):
             kk, vv, ex = rot()
-            paged_flash_attention(q, kk, vv, tables, lengths, **kw, **ex)
+            pa._launch(q, kk, vv, tables, lengths, ex.get("k_scale"),
+                       ex.get("v_scale"), kw["sink_tokens"],
+                       kw["window_tokens"], q.shape[-1] ** -0.5,
+                       pages_per_split=pages_per_split)
 
-        def plain():
-            kk, vv, ex = rot()
-            paged_flash_attention_plain(q, kk, vv, tables, lengths, **kw,
-                                        **ex)
-
-        def library():
-            kk, vv, ex = rot()
-            library_call(case, kk, vv, ex)
-
+        # the same kernel with other run lengths, from a page a warp up to
+        # one run for the whole table; and the merge kernel alone
+        out["per_split_ms"] = {
+            p: call_device_ms(lambda p=p: launch(p), 50)[0]
+            for p in sorted({per_split, 4, 8, 12, 16, 24, 32, pages})}
+        if per_split < pages:
+            out["merge_ms"] = kernel_device_ms(
+                lambda: launch(per_split), 50, PAGED_KERNELS[1])
+        lib_ms, lib_kernels = call_device_ms(
+            lambda: library_call(case, *rot()), 20)
         bms, by = bound_ms(case)
-        out.update(ms=time_ms(kern, 200), plain_ms=time_ms(plain, 5),
-                   library_ms=time_ms(library, 50), bound_ms=bms,
-                   bound_by=by)
+        out.update(pages_per_split=per_split, bound_ms=bms, bound_by=by,
+                   plain_ms=time_ms(lambda: pa.paged_flash_attention_plain(
+                       q, k, v, tables, lengths, **kw, **extra), 3),
+                   library_ms=lib_ms, library_kernels=lib_kernels,
+                   library_ms_events=time_ms(
+                       lambda: library_call(case, *rot()), 20),
+                   times_bound=out["ms"] / bms, copies=case["copies"],
+                   cycle_mb=case["cycle_bytes"] / 1e6)
     log(f"  {case['name']}: " + json.dumps(
         {k: (round(v, 6) if isinstance(v, float) else v)
-         for k, v in out.items() if k != "name"}))
+         for k, v in out.items() if k != "name"}, default=float))
     return out
 
 
 def phase_kernels() -> dict:
-    log("phase 3: kernels vs plain twins (tolerance "
-        f"|err| <= {BF16_TOL} * (1 + |plain|), bf16)")
-    serving = paged_case("serving_8x12x64_bs16", copies=4)
-    res = run_case(serving, timed=True)
-    errs = [res["max_abs_err"]]
+    log("phase 3: the paged kernel vs its plain twin (tolerance "
+        f"|err| <= {BF16_TOL} * (1 + |plain|), bf16; two launches bitwise "
+        "equal); timed on the device clock over pools past the L2")
+    cases = [run_case(paged_case(name, timed=True, **kw), timed=True)
+             for name, kw in PAGED_TIMED]
+    errs = [c["max_abs_err"] for c in cases]
     for case in (
-            paged_case("gqa_32q_8kv", heads=32, kv_heads=8, seed=1),
             paged_case("int8_pool", int8=True, seed=2),
-            paged_case("sink16_window256", sink=16, window=256, seed=3)):
+            paged_case("sink16_window256", sink=16, window=256, seed=3),
+            paged_case("gqa_16q_2kv", heads=16, kv_heads=2, seed=4)):
         errs.append(run_case(case, timed=False)["max_abs_err"])
+    res = dict(cases[0])
     res["max_abs_err_all_variants"] = max(errs)
+    res["cases"] = cases
     return res
 
 
@@ -503,12 +627,14 @@ def phase_serve() -> dict:
     return out
 
 
-def device_profile(run, name: str) -> dict:
+def device_profile(run, name: str, tally=()) -> dict:
     """Where a window's time goes: ``run()`` under torch.profiler. Device
     busy time is the union of the CUDA kernels' intervals (GPU user
     annotations such as ``Optimizer.step#AdamW.step`` span kernels and
     are left out); the rest of the host-clock window is device idle.
-    Written in full to ``<name>_profile.json`` in the report directory."""
+    ``tally_ms`` sums the device time of the kernels whose names contain
+    one of ``tally``. Written in full to ``<name>_profile.json`` in the
+    report directory."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -535,10 +661,14 @@ def device_profile(run, name: str) -> dict:
             busy += b - max(a, end)
             end = b
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
+    tallied = [v for k, v in per_kernel.items()
+               if any(t in k for t in tally)]
     out = dict(wall_ms=wall_us / 1e3, **(extra or {}),
                device_busy_ms=busy / 1e3,
                device_idle_share=(1 - busy / wall_us) if spans else None,
                kernels=len(spans),
+               tally_ms=sum(v[0] for v in tallied) / 1e3,
+               tally_launches=sum(v[1] for v in tallied),
                top=[dict(name=k[:80], ms=v[0] / 1e3, count=v[1])
                     for k, v in top[:12]])
     with open(os.path.join(report_dir(), f"{name}_profile.json"), "w") as f:
@@ -552,7 +682,8 @@ def device_profile(run, name: str) -> dict:
 
 def profile_serve(engine, prompts) -> dict:
     """A short second serving run (8 requests, 64-token prompts, 24 new
-    tokens) under the profiler (serve_profile.json)."""
+    tokens) under the profiler (serve_profile.json); ``tally_ms`` is the
+    paged kernels' device time in it."""
 
     def run():
         for p in prompts:
@@ -561,7 +692,7 @@ def profile_serve(engine, prompts) -> dict:
         engine.run_until_idle()
         return dict(ticks=engine.summary()["ticks"] - ticks0)
 
-    return device_profile(run, "serve")
+    return device_profile(run, "serve", tally=PAGED_KERNELS)
 
 
 # ---------------------------------------------------------------------------
@@ -1291,8 +1422,8 @@ def main() -> int:
     if registers:   # only a build made here has a report
         log("  ptxas: " + json.dumps(registers))
         spills = {k: v for k, v in registers.items()
-                  if k.startswith("flash_") and v["spill_bytes"]}
-        check(not spills, f"flash instantiations spill: {spills}")
+                  if k.startswith(("flash_", "paged_")) and v["spill_bytes"]}
+        check(not spills, f"kernel instantiations spill: {spills}")
 
     kern = phase_kernels()
     flash = phase_flash(registers)
@@ -1301,14 +1432,23 @@ def main() -> int:
     train = phase_train(card)
     ring_train = phase_ring_train(card)
 
+    # the paged row: the serving shape's device-clock time per call (its
+    # kernel and, with more than one run of pages, the merge), and every
+    # timed case beside it
     entries = [dict(
         name="paged_attention", route="cuda",
         source="pytorchdistributed_tpu_torch/csrc/paged_attention.cu",
-        replaces="pytorchdistributed_tpu/ops/pallas_attention.py:482",
-        launches=serve["launches"], max_abs_err=kern["max_abs_err"],
-        ms=kern["ms"], plain_ms=kern["plain_ms"], bound_ms=kern["bound_ms"],
-        bound_by=kern["bound_by"], library_ms=kern["library_ms"],
-        max_abs_err_all_variants=kern["max_abs_err_all_variants"])]
+        replaces=PAGED_REPLACES, launches=serve["launches"],
+        **{k: kern[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "ms_events", "kernels_per_call",
+            "pages_per_split", "max_abs_err_all_variants")},
+        serve_profile_ms=serve["profile"]["tally_ms"],
+        cases=[{k: c[k] for k in (
+            "name", "ms", "ms_events", "bound_ms", "bound_by", "times_bound",
+            "library_ms", "library_ms_events", "plain_ms",
+            "pages_per_split", "per_split_ms", "merge_ms", "copies",
+            "cycle_mb", "max_abs_err") if k in c} for c in kern["cases"]])]
     for name, row in flash["kernels"].items():
         entries.append(dict(
             name=name, route="cuda",

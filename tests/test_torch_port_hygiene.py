@@ -187,3 +187,43 @@ def test_ring_refuses_to_fall_back(monkeypatch):
     out = ring.ring_attention_sharded(q.float(), q.float(), q.float(),
                                       causal=True, mesh=mesh)
     assert out.shape == q.shape and bool(torch.isfinite(out).all())
+
+
+# two paged instantiations that differ only in type arguments (and use a
+# substitution), then a flash one, as ``nvcc -Xptxas -v`` reports them
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__74e6c365_18_paged_attention_cu_b49fea3922paged_attention_kernelI13__nv_bfloat16S1_Li64ELi1EEEvPKT_PKT0_S7_PKfS9_PKiSB_PS2_PfSD_iiiiiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__74e6c365_18_paged_attention_cu_b49fea3922paged_attention_kernelI13__nv_bfloat16S1_Li64ELi1EEEvPKT_PKT0_S7_PKfS9_PKiSB_PS2_PfSD_iiiiiiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 1312 bytes smem
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__74e6c365_18_paged_attention_cu_b49fea3922paged_attention_kernelI13__nv_bfloat16aLi64ELi1EEEvPKT_PKT0_S7_PKfS9_PKiSB_PS2_PfSD_iiiiiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__74e6c365_18_paged_attention_cu_b49fea3922paged_attention_kernelI13__nv_bfloat16aLi64ELi1EEEvPKT_PKT0_S7_PKfS9_PKiSB_PS2_PfSD_iiiiiiiiif
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 1312 bytes smem
+ptxas info    : Compiling entry function '_Z16flash_fwd_kernelILi64ELb0ELi128EEvPK13__nv_bfloat16S2_S2_PS0_Pfiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _Z16flash_fwd_kernelILi64ELb0ELi128EEvPK13__nv_bfloat16S2_S2_PS0_Pfiiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 254 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_names_every_instantiation():
+    """``chip_smoke.ptxas_kernels`` keys each instantiation by its name
+    with its template arguments, type arguments included, so no paged
+    instantiation overwrites another."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    got = chip_smoke.ptxas_kernels(PTXAS_REPORT)
+    assert got == {
+        "paged_attention_kernel<bf16, bf16, 64, 1>":
+            {"registers": 72, "spill_bytes": 0},
+        "paged_attention_kernel<bf16, int8, 64, 1>":
+            {"registers": 80, "spill_bytes": 8},
+        "flash_fwd_kernel<64, false, 128>":
+            {"registers": 254, "spill_bytes": 0},
+    }
+    assert chip_smoke.demangle_kernel(
+        "_ZN12_GLOBAL__N_122paged_attention_kernelIfaLi128ELi4EEEvPKT_"
+    ) == "paged_attention_kernel<float, int8, 128, 4>"
